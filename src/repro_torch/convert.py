@@ -1,0 +1,60 @@
+"""State carried across from the JAX package.
+
+The system has no weights: what crosses over is its input and its carried
+state, the edge stream, the float32 threshold vector and the packed
+matching bits. Every function takes host numpy arrays (``np.asarray`` of
+the JAX package's arrays), never JAX objects, and keeps their bits.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import (
+    EdgeStream,
+    MatchingResult,
+    SubstreamConfig,
+    resolve_device,
+    to_numpy,
+)
+
+
+def _exact(name: str, a, dtype) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype != dtype:
+        raise ValueError(f"{name}: want {np.dtype(dtype)}, got {a.dtype}")
+    return np.array(a)  # a writable copy: torch.from_numpy shares memory
+
+
+def stream_from_arrays(src, dst, weight, valid, device=None) -> EdgeStream:
+    """A stream holding exactly the given arrays: the numpy views of a JAX
+    ``EdgeStream`` (int32 src/dst, float32 weight, bool valid)."""
+    arrays = (
+        _exact("src", src, np.int32),
+        _exact("dst", dst, np.int32),
+        _exact("weight", weight, np.float32),
+        _exact("valid", valid, np.bool_),
+    )
+    if len({a.shape for a in arrays}) != 1 or arrays[0].ndim != 1:
+        raise ValueError(f"shapes differ: {[a.shape for a in arrays]}")
+    dev = resolve_device(device)
+    return EdgeStream(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def config_from_reference(n: int, L: int, eps: float, thresholds, mb_layout: str = "packed"):
+    """A config whose thresholds are the reference's float32 [L] vector
+    (its engines compute ``cfg.thresholds()`` under jit)."""
+    return SubstreamConfig(
+        n, L, eps, mb_layout=mb_layout,
+        thresholds=_exact("thresholds", thresholds, np.float32),
+    )
+
+
+def mb0_from_reference(mb_packed, device=None) -> torch.Tensor:
+    """Carried matching bits, uint8 [n, ceil(L/8)]."""
+    return torch.from_numpy(_exact("mb_packed", mb_packed, np.uint8)).to(resolve_device(device))
+
+
+def result_to_numpy(result: MatchingResult):
+    """(assigned int32 [m], mb_packed uint8 [n, ceil(L/8)]) on the host."""
+    return to_numpy(result.assigned), to_numpy(result.packed())

@@ -1,0 +1,73 @@
+"""Faithful substream-centric MWM, Listing 1 Part 1 of the paper: the
+CS-SEQ oracle that every other Part-1 engine is held to, bit for bit.
+
+One pass over the edge stream; for every edge all ``L`` substreams are
+updated at once (the FPGA's bit-parallel matching-bit word). These are
+Python loops over edges on tensors, meant for tests and for comparing a
+kernel with its plain version, not for speed.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.types import MatchingResult, SubstreamConfig, resolve_device
+
+
+def greedy_scan(te: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, mb: torch.Tensor):
+    """Listing 1's per-edge matching update on precomputed eligibility words.
+
+    ``te`` [m, ...] holds each edge's eligibility word (bool lanes or uint8
+    bit planes; self-loops and invalid edges already cleared), ``mb`` the
+    matching bits [n, ...] of the same type, updated in place. Per edge
+    e = (u, v): ``add = te & ~mb[u] & ~mb[v]``, then ``mb[u] |= add`` and
+    ``mb[v] |= add``. Returns ``added`` [m, ...], each edge's ``add``.
+    """
+    added = torch.zeros_like(te)
+    for i, (u, v) in enumerate(zip(src.tolist(), dst.tolist())):
+        add = te[i] & ~mb[u] & ~mb[v]
+        mb[u] |= add
+        mb[v] |= add
+        added[i] = add
+    return added
+
+
+def highest_lane(added: torch.Tensor) -> torch.Tensor:
+    """int32 [m]: the highest True lane of each row of bool [m, L], or -1
+    (Stage 7: Listing 1's descending loop records the first i added)."""
+    lane = torch.arange(added.shape[1], dtype=torch.int32, device=added.device)
+    return torch.where(added, lane, -1).amax(dim=1).to(torch.int32)
+
+
+def mwm_scan(
+    stream, cfg: SubstreamConfig, mb0: torch.Tensor | None = None, device=None
+) -> MatchingResult:
+    """Listing 1, Part 1, one edge at a time.
+
+    ``mb0`` (bool [n, L], default zeros) seeds the matching bits.
+
+    Per edge e=(u,v,w):
+      te    = [w >= thr_i]_i & valid & (u != v)   (eligibility, Stage 4)
+      add   = te & ~MB[u] & ~MB[v]                (Stage 5)
+      MB[u]|= add ; MB[v]|= add                   (Stage 6)
+      assigned = highest set bit of add, else -1  (Stage 7)
+    """
+    dev = resolve_device(device)
+    stream = stream.to(dev)
+    if cfg.n == 0:
+        return MatchingResult(
+            assigned=torch.full((stream.num_edges,), -1, dtype=torch.int32, device=dev),
+            mb=torch.zeros((0, cfg.L), dtype=torch.bool, device=dev),
+        )
+    thr = torch.tensor(cfg.thresholds(), device=dev)
+    te = (
+        (stream.weight[:, None] >= thr)
+        & stream.valid[:, None]
+        & (stream.src != stream.dst)[:, None]
+    )
+    mb = (
+        torch.zeros((cfg.n, cfg.L), dtype=torch.bool, device=dev)
+        if mb0 is None
+        else mb0.to(device=dev, dtype=torch.bool).clone()
+    )
+    added = greedy_scan(te, stream.src, stream.dst, mb)
+    return MatchingResult(assigned=highest_lane(added), mb=mb)

@@ -1,0 +1,122 @@
+"""Rules of the port: it stands alone (no JAX, nothing of ``repro``), runs on
+the card unless asked for the CPU, never falls back, and says so where a
+part is not ported yet."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import EdgeStream, SubstreamConfig, mwm_pipeline
+from repro_torch.kernels.substream_match import kernel
+from repro_torch.kernels.substream_match.ops import L2_BYTES, device_plan, substream_match
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: an import of jax or of the JAX package (``repro`` but not ``repro_torch``)
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b(?!_)", re.M)
+
+
+def test_port_files_import_neither_jax_nor_repro():
+    assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
+    offenders = {
+        str(p.relative_to(ROOT)): FORBIDDEN.findall(p.read_text()) for p in PORT_FILES
+    }
+    assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'repro.')) or k == 'repro')\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def _cpu_stream():
+    return EdgeStream.from_numpy([0, 1], [1, 2], [2.0, 3.0], device="cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card, ``device=None`` raises: nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stream, cfg = _cpu_stream(), SubstreamConfig(n=3, L=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        substream_match(stream, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mwm_pipeline(stream, cfg, part1="kernel")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EdgeStream.from_numpy([0], [1], [1.0])
+
+
+@pytest.mark.parametrize("schedule", ["waves", "mega"])
+def test_unported_schedules_raise(schedule):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        substream_match(_cpu_stream(), SubstreamConfig(n=3, L=8), schedule=schedule, device="cpu")
+
+
+def test_unported_layout_and_engines_raise():
+    stream = _cpu_stream()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        substream_match(stream, SubstreamConfig(n=3, L=8, mb_layout="unpacked"), device="cpu")
+    for part1 in ("waves", "rounds"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            mwm_pipeline(stream, SubstreamConfig(n=3, L=8), part1=part1, device="cpu")
+    with pytest.raises(ValueError):
+        mwm_pipeline(stream, SubstreamConfig(n=3, L=8), part1="pallas", device="cpu")
+
+
+def test_device_plan():
+    plan = device_plan(2**20, 64)  # the paper's configuration
+    assert (plan.n_pad, plan.width, plan.words, plan.nbytes) == (2**20, 8, 8, 8 * 2**20)
+    assert plan.fits_l2 and plan.nbytes <= L2_BYTES
+    plan = device_plan(257, 300)
+    assert (plan.n_pad, plan.width, plan.words) == (264, 40, 38)
+    assert not device_plan(2**23, 64).fits_l2
+    with pytest.raises(ValueError, match="free on the card"):
+        device_plan(2**20, 64, free_bytes=2**20)
+
+
+def test_kernel_wrapper_checks_operands():
+    edges = torch.tensor([[0, 1], [1, 2]], dtype=torch.int32)
+    w = torch.tensor([2.0, 3.0])
+    thr = torch.full((8, 8), float("inf"))
+    thr[0, 0] = 1.0
+    assigned, mb = kernel.substream_match_packed(edges, w, thr, 8)  # CPU: plain version
+    assert assigned.tolist() == [0, -1] and mb.shape == (8, 8)
+    assert mb[:3, 0].tolist() == [1, 1, 0]
+    with pytest.raises(ValueError, match="edges"):
+        kernel.substream_match_packed(edges.long(), w, thr, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.substream_match_packed(edges, w, thr.T.contiguous().T, 8)
+    with pytest.raises(ValueError, match="mb_init"):
+        kernel.substream_match_packed(edges, w, thr, 8, mb_init=torch.zeros((4, 8), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="outside"):
+        kernel.substream_match_packed(edges, w, thr, 2)
+    with pytest.raises(ValueError, match="outside"):
+        kernel.substream_match_packed(-edges, w, thr, 8)
+
+
+def test_invalid_edges_with_wild_ids_never_match():
+    """Padding edges may hold any ids: they enter the kernel as vertex 0
+    with weight 0 and change nothing."""
+    stream = EdgeStream(
+        src=torch.tensor([0, -7, 1], dtype=torch.int32),
+        dst=torch.tensor([1, 99, 2], dtype=torch.int32),
+        weight=torch.tensor([2.0, 5.0, 3.0]),
+        valid=torch.tensor([True, False, True]),
+    )
+    r = substream_match(stream, SubstreamConfig(n=3, L=8), device="cpu")
+    assert r.assigned.tolist() == [7, -1, -1]
+    np.testing.assert_array_equal(r.mb.numpy()[:, 7], [True, True, False])
