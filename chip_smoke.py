@@ -3,16 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port's main path from the sources in the
-checkout, holds each against its plain PyTorch version on the card, then
-drives the paper's main path (Kronecker scale 20, edge factor 48, L=64,
-eps=0.1, K=32: blocked order -> packed per-edge kernel -> greedy merge)
-through ``mwm_pipeline(part1="kernel")`` and checks the matching with the
-postcondition guard. Each phase prints one JSON line; any failure raises,
-so the script exits non-zero. The last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
-prints no result.
+Builds every CUDA kernel of the port from the sources in the checkout
+(one nvcc per source, all at once), holds each against its plain PyTorch
+version on the card, then drives two paths of the paper's configuration
+(Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
+
+* the main path: blocked order -> packed per-edge kernel -> greedy merge,
+  through ``mwm_pipeline(part1="kernel")``;
+* the wave path: the stream in its generated order -> host wave schedule
+  -> ``substream_match(schedule="mega")`` and ``schedule="waves"``, held
+  bit for bit against the per-edge kernel on the same order, merged and
+  checked; and the blocked order through the wave kernels at scale 16.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after. Each phase prints one JSON line; any failure raises, so the
+script exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 1 and prints no result.
 """
+import concurrent.futures
 import json
 import pathlib
 import re
@@ -26,8 +34,12 @@ sys.path.insert(0, str(ROOT / "src"))
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-#: edges of the blocked paper stream on which the kernel meets its plain version
+#: edges of the blocked paper stream on which the per-edge kernel meets its plain version
 PLAIN_PREFIX = 20_000
+#: edges of the generated paper stream on which the wave kernels meet theirs
+WAVE_PLAIN_PREFIX = 200_000
+#: the scale of the blocked-order route through the wave kernels
+BLOCKED_WAVE_SCALE = 16
 
 
 def emit(phase, **fields):
@@ -70,39 +82,57 @@ def phase_device():
     return device, smi
 
 
+def _ptxas_entries(ptxas):
+    """{entry function: {"registers", "spill_bytes"}} from nvcc's -Xptxas -v."""
+    out = {}
+    for name, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|$)",
+                                 ptxas, re.S):
+        regs = re.findall(r"Used (\d+) registers", body)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        out[name] = {"registers": int(regs[0]) if regs else None,
+                     "spill_bytes": sum(int(a) + int(b) for a, b in spills)}
+    return out
+
+
 def phase_build():
+    """Build every source at once, one nvcc each."""
     from repro_torch.kernels import build
     from repro_torch.kernels.substream_match import kernel
 
-    kernel._launcher()
-    info = build.builds[kernel.NAME]
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["ptxas"])]
-    spills = [int(a) + int(b) for a, b in
-              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info["ptxas"])]
-    emit("build", kernel=kernel.NAME, seconds=info["seconds"], built=info["built"],
-         registers=regs, spill_bytes=spills)
-    if not info["built"] or not regs:
-        raise RuntimeError("the kernel was not built from the checkout's source")
+    loads = {kernel.NAME: kernel._launcher,
+             kernel.WAVES_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_NAME)}
+    with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
+        for fut in [pool.submit(fn) for fn in loads.values()]:
+            fut.result()
+    for name in loads:
+        info = build.builds[name]
+        entries = _ptxas_entries(info["ptxas"])
+        emit("build", library=name, seconds=info["seconds"], built=info["built"],
+             entries=entries)
+        if not info["built"] or not entries:
+            raise RuntimeError(f"{name} was not built from the checkout's source")
 
 
-def paper_stream():
-    """The paper's configuration, generated on the host and moved to the card."""
+def paper_stream(config=None):
+    """The paper's configuration (or ``config``), generated on the host in
+    its generated order and moved to the card."""
     import torch
 
     from repro_torch.configs.paper_matching import CONFIG
     from repro_torch.core import EdgeStream, SubstreamConfig
     from repro_torch.graph.generators import kronecker_graph, uniform_weights
 
+    config = config or CONFIG
     t0 = time.perf_counter()
-    src, dst = kronecker_graph(CONFIG.scale, CONFIG.edge_factor, seed=CONFIG.seed)
-    w = uniform_weights(src.shape[0], CONFIG.L, CONFIG.eps, seed=CONFIG.seed)
+    src, dst = kronecker_graph(config.scale, config.edge_factor, seed=config.seed)
+    w = uniform_weights(src.shape[0], config.L, config.eps, seed=config.seed)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     stream = EdgeStream.from_numpy(src, dst, w)
     torch.cuda.synchronize()
     h2d_s = time.perf_counter() - t0
-    cfg = SubstreamConfig(n=1 << CONFIG.scale, L=CONFIG.L, eps=CONFIG.eps)
-    return CONFIG, stream, cfg, gen_s, h2d_s
+    cfg = SubstreamConfig(n=1 << config.scale, L=config.L, eps=config.eps)
+    return config, stream, cfg, gen_s, h2d_s
 
 
 def phase_kernel_vs_plain(paper, paper_cfg, K):
@@ -154,6 +184,81 @@ def phase_kernel_vs_plain(paper, paper_cfg, K):
     if bad:
         raise AssertionError(f"kernel differs from its plain version on {bad}")
     return max_err, timed
+
+
+def _compare(a_k, mb_k, a_p, mb_p):
+    """max |kernel - plain| over assigned and the bit block (0 = equal)."""
+    return max(int((a_k - a_p).abs().max()) if a_k.numel() else 0,
+               int((mb_k.int() - mb_p.int()).abs().max()) if mb_k.numel() else 0)
+
+
+def phase_wave_kernels_vs_plain(paper, paper_cfg):
+    """Both wave kernels and their plain versions on the same operands on
+    the card: the zoo, RMAT scale 12 at three L, a carried-state run,
+    seg_block 1, 2 and 4 for mega, and a prefix of the paper stream in its
+    generated order. Returns {kernel: (max_abs_err, timings at the prefix)}."""
+    import torch
+
+    from repro_torch.core import EdgeStream, SubstreamConfig, permute_stream
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import (
+        MEGA_SEG_BLOCK, mega_inputs, resolve_stream_schedule, substream_match, waves_inputs,
+    )
+    from repro_torch.testing.cases import ZOO, rmat_case
+
+    def on_card(case, mb0=None):
+        stream = EdgeStream.from_numpy(case.src, case.dst, case.w, n_pad=case.m_pad)
+        return stream, SubstreamConfig(n=case.n, L=case.L, eps=case.eps), mb0
+
+    def head(stream, lo, hi):
+        return permute_stream(stream, torch.arange(lo, hi, device=stream.device))
+
+    cases = {f"zoo_{name}": on_card(fn()) for name, fn in ZOO.items()}
+    for L, eps in ((13, 0.1), (64, 0.1), (300, 0.01)):
+        cases[f"rmat12_L{L}"] = on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
+    stream, cfg, _ = on_card(rmat_case(12, edge_factor=4, L=64))
+    h = stream.num_edges // 2
+    mb0 = substream_match(head(stream, 0, h), cfg, schedule="mega").mb_packed
+    cases["rmat12_L64_mb0"] = (head(stream, h, stream.num_edges), cfg, mb0)
+    cases["paper_generated_prefix"] = (head(paper, 0, WAVE_PLAIN_PREFIX), paper_cfg, None)
+
+    engines = {kernel.MEGA_NAME: (kernel.substream_match_mega, kernel.substream_match_mega_plain),
+               kernel.WAVES_NAME: (kernel.substream_match_waves, kernel.substream_match_waves_plain)}
+    results = {name: {} for name in engines}
+    max_err = dict.fromkeys(engines, 0)
+    timed = {}
+    for case, (stream, cfg, mb0) in cases.items():
+        sch = resolve_stream_schedule(stream)
+        prefix = case == "paper_generated_prefix"
+        variants = [(kernel.MEGA_NAME, sb, mega_inputs(stream, cfg, sch, sb, mb0)[0])
+                    for sb in ((MEGA_SEG_BLOCK,) if prefix else (1, 2, 4))]
+        variants.append((kernel.WAVES_NAME, None, waves_inputs(stream, cfg, sch, mb0)[0]))
+        for name, sb, args in variants:
+            launch, plain = engines[name]
+            a_k, mb_k = launch(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a_p, mb_p = plain(*args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            err = _compare(a_k, mb_k, a_p, mb_p)
+            max_err[name] = max(max_err[name], err)
+            label = case if sb is None else f"{case}_sb{sb}"
+            results[name][label] = {"m": stream.num_edges, "L": cfg.L, "waves": sch.num_waves,
+                                    "equal": err == 0}
+            if prefix:
+                ms, _ = cuda_ms(lambda: launch(*args), reps=5)
+                plan_n_pad, width = args[4], (args[2].shape[-1] if name == kernel.WAVES_NAME
+                                              else args[2].shape[0] // 8)
+                timed[name] = {"plain_ms": plain_s * 1e3, "ms_at_plain_m": ms,
+                               "bound_ms_at_plain_m": bound(stream.num_edges, plan_n_pad, width)[0]}
+    for name in engines:
+        emit("kernel_vs_plain", kernel=name, cases=results[name], max_abs_err=max_err[name],
+             plain_m=WAVE_PLAIN_PREFIX, **timed[name])
+        bad = [k for k, v in results[name].items() if not v["equal"]]
+        if bad:
+            raise AssertionError(f"{name} differs from its plain version on {bad}")
+    return {name: (max_err[name], timed[name]) for name in engines}
 
 
 def phase_main_path(config, stream, cfg, gen_s, h2d_s):
@@ -223,6 +328,163 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
             "launches": launches[kernel.NAME]}
 
 
+def phase_wave_path(config, stream, cfg):
+    """The wave path at full size, in the stream's generated order: the host
+    schedule once, then ``substream_match(schedule="mega")`` and
+    ``schedule="waves"`` through the public entry point, each counted
+    alone; then the same calls stage by stage, timed; the per-edge kernel
+    on the same order once; all three bit-equal; the merge checked."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import check_matching, merge_host
+    from repro_torch.core.types import to_numpy
+    from repro_torch.graph import waves
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import (
+        device_plan, kernel_inputs, mega_inputs, substream_match, waves_inputs,
+    )
+
+    src, dst, valid = (to_numpy(t) for t in (stream.src, stream.dst, stream.valid))
+    t0 = time.perf_counter()
+    sch = waves.wave_schedule(src, dst, valid=valid)
+    schedule_s = time.perf_counter() - t0
+    sizes = sch.wave_sizes()
+    m = stream.num_edges
+    plan = device_plan(cfg.n, cfg.L)
+    engines = {"mega": (kernel.MEGA_NAME, kernel.substream_match_mega, mega_inputs),
+               "waves": (kernel.WAVES_NAME, kernel.substream_match_waves, waves_inputs)}
+    results, report = {}, {}
+    for schedule, (name, launch, inputs) in engines.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        res = substream_match(stream, cfg, schedule=schedule, waves=sch)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = dict(build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"the wave path launched no {name}: {launches}")
+        results[schedule] = res
+        t0 = time.perf_counter()
+        args, slots = inputs(stream, cfg, sch)
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(3):
+            ms, (a_slots, mb) = cuda_ms(lambda: launch(*args))
+            runs.append(ms)
+        t0 = time.perf_counter()
+        assigned = waves.scatter_slot_assignments(slots, a_slots, m)
+        torch.cuda.synchronize()
+        scatter_s = time.perf_counter() - t0
+        if not (torch.equal(assigned, res.assigned)
+                and torch.equal(mb[: cfg.n, : plan.words], res.mb_packed)):
+            raise AssertionError(f"the staged {schedule} run disagrees with substream_match")
+        kernel_ms = sorted(runs)[1]
+        total = a_slots.numel()
+        bound_ms, bound_by = bound(m, plan.n_pad, plan.width)
+        report[schedule] = {
+            "kernel": name, "launches": launches, "max_memory_allocated": peak,
+            "seconds": {"substream_match_call": call_s, "layout_host": layout_s,
+                        "kernel": kernel_ms / 1e3, "kernel_runs": [t / 1e3 for t in runs],
+                        "scatter": scatter_s},
+            "ns_per_edge_kernel": kernel_ms * 1e6 / m, "edges_per_s_kernel": m / (kernel_ms / 1e3),
+            "slots": total, "slot_fill": sch.num_scheduled / total if total else 1.0,
+            "segments": int(args[3][-1]),
+        }
+        if schedule == "mega":
+            report[schedule]["tiles"] = int(args[3][-1]) // args[6]
+            report[schedule]["seg_block"] = args[6]
+        report[schedule]["out"] = {"name": name, "ms": kernel_ms, "bound_ms": bound_ms,
+                                   "bound_by": bound_by, "launches": launches[name], "m": m,
+                                   "slot_fill": report[schedule]["slot_fill"]}
+        del args, slots, a_slots, mb
+    # the per-edge kernel on the same (generated) order, once
+    args = kernel_inputs(stream, cfg)
+    edges_ms, (a_e, mb_e) = cuda_ms(lambda: kernel.substream_match_packed(*args))
+    del args
+    for schedule, res in results.items():
+        if not (torch.equal(res.assigned, a_e)
+                and torch.equal(res.mb_packed, mb_e[: cfg.n, : plan.words])):
+            raise AssertionError(f"schedule={schedule!r} differs from the per-edge kernel")
+    t0 = time.perf_counter()
+    merged = merge_host(stream, results["mega"], cfg)
+    merge_s = time.perf_counter() - t0
+    check_matching(results["mega"], stream, cfg, merged=merged)
+    recorded = int((results["mega"].assigned >= 0).sum())
+    weight = float(to_numpy(stream.weight)[merged].sum())
+    if not (0 < merged.size <= recorded) or not weight > 0:
+        raise AssertionError(f"implausible matching: {merged.size} edges, weight {weight}")
+    emit("wave_path", config=config.name, order="generated", scale=config.scale,
+         edge_factor=config.edge_factor, L=cfg.L, eps=cfg.eps, n=cfg.n, m=m,
+         schedule={"host_seconds": schedule_s, "assign_seconds": sch.schedule_seconds,
+                   "pack_seconds": sch.pack_seconds, "waves": sch.num_waves,
+                   "segments": sch.num_segments, "fill": sch.fill,
+                   "median_wave": float(np.median(sizes)), "max_wave": int(sizes.max())},
+         engines={k: {kk: vv for kk, vv in v.items() if kk != "out"} for k, v in report.items()},
+         edges_kernel_same_order={"ms": edges_ms, "ns_per_edge": edges_ms * 1e6 / m},
+         bit_equal_to_edges_kernel=True, merge_host_seconds=merge_s,
+         recorded_edges=recorded, matched_edges=int(merged.size), weight=weight,
+         check_matching="passed")
+    return {v["out"]["name"]: v["out"] for v in report.values()}
+
+
+def phase_blocked_wave_route(K):
+    """The blocked order (Listing 2) through the wave kernels at a smaller
+    scale: ``mwm_pipeline(part1="kernel", schedule=...)`` must give the
+    per-edge pipeline's matching; the blocked order leaves few edges per
+    wave, which the kernel times show."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.paper_matching import CONFIG
+    from repro_torch.core import lexicographic_order, mwm_pipeline, permute_stream
+    from repro_torch.core.types import to_numpy
+    from repro_torch.graph import waves
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import kernel_inputs, mega_inputs, waves_inputs
+
+    config, stream, cfg, gen_s, _ = paper_stream(dataclasses.replace(CONFIG, scale=BLOCKED_WAVE_SCALE))
+    routes = {}
+    for schedule in ("edges", "mega", "waves"):
+        build.launches.clear()
+        t0 = time.perf_counter()
+        idx, weight = mwm_pipeline(stream, cfg, part1="kernel", K=K, schedule=schedule)
+        routes[schedule] = {"idx": idx, "weight": weight, "seconds": time.perf_counter() - t0,
+                            "launches": dict(build.launches)}
+    for schedule in ("mega", "waves"):
+        if not np.array_equal(routes[schedule]["idx"], routes["edges"]["idx"]):
+            raise AssertionError(f"blocked schedule={schedule!r} differs from the edges pipeline")
+        name = kernel.MEGA_NAME if schedule == "mega" else kernel.WAVES_NAME
+        if routes[schedule]["launches"].get(name, 0) < 1:
+            raise AssertionError(f"the blocked route launched no {name}")
+    blocked = permute_stream(stream, lexicographic_order(stream, K))
+    src, dst, valid = (to_numpy(t) for t in (blocked.src, blocked.dst, blocked.valid))
+    sch = waves.wave_schedule(src, dst, valid=valid)
+    sizes = sch.wave_sizes()
+    kernel_ms = {
+        "edges": cuda_ms(lambda a=kernel_inputs(blocked, cfg): kernel.substream_match_packed(*a))[0],
+        "mega": cuda_ms(lambda a=mega_inputs(blocked, cfg, sch)[0]: kernel.substream_match_mega(*a))[0],
+        "waves": cuda_ms(lambda a=waves_inputs(blocked, cfg, sch)[0]: kernel.substream_match_waves(*a))[0],
+    }
+    emit("blocked_wave_route", scale=config.scale, edge_factor=config.edge_factor, L=cfg.L, K=K,
+         m=stream.num_edges, generate_host_seconds=gen_s,
+         waves=sch.num_waves, segments=sch.num_segments, fill=sch.fill,
+         median_wave=float(np.median(sizes)), max_wave=int(sizes.max()),
+         schedule_host_seconds=sch.schedule_seconds + sch.pack_seconds,
+         kernel_ms=kernel_ms,
+         pipelines={k: {"seconds": v["seconds"], "launches": v["launches"],
+                        "matched_edges": int(v["idx"].size), "weight": v["weight"]}
+                    for k, v in routes.items()},
+         equal_to_edges_pipeline=True)
+
+
 def main():
     import torch
 
@@ -235,11 +497,16 @@ def main():
     phase_build()
     config, stream, cfg, gen_s, h2d_s = paper_stream()
     max_err, timed = phase_kernel_vs_plain(stream, cfg, config.K)
+    wave_checks = phase_wave_kernels_vs_plain(stream, cfg)
     main = phase_main_path(config, stream, cfg, gen_s, h2d_s)
-    print(json.dumps({"kernels": [{
+    wave = phase_wave_path(config, stream, cfg)
+    del stream
+    phase_blocked_wave_route(config.K)
+    source = "src/repro_torch/kernels/substream_match/csrc/"
+    rows = [{
         "name": kernel.NAME,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/substream_match/csrc/substream_match_packed.cu",
+        "source": source + "substream_match_packed.cu",
         "replaces": "src/repro/kernels/substream_match/kernel.py:117",
         "launches": main["launches"],
         "max_abs_err": max_err,
@@ -253,7 +520,20 @@ def main():
         "ms_at_plain_m": timed["ms_at_plain_m"],
         "bound_ms_at_plain_m": timed["bound_ms_at_plain_m"],
         "matched_plain": max_err == 0,
-    }]}), flush=True)
+    }]
+    for name, line in ((kernel.MEGA_NAME, 519), (kernel.WAVES_NAME, 243)):
+        err, t = wave_checks[name]
+        w = wave[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source + "substream_match_waves.cu",
+            "replaces": f"src/repro/kernels/substream_match/kernel.py:{line}",
+            "launches": w["launches"], "max_abs_err": err, "ms": w["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+            "library_ms": None, "m": w["m"], "slot_fill": w["slot_fill"],
+            "plain_m": WAVE_PLAIN_PREFIX, "ms_at_plain_m": t["ms_at_plain_m"],
+            "bound_ms_at_plain_m": t["bound_ms_at_plain_m"], "matched_plain": err == 0,
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

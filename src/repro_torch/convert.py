@@ -1,8 +1,8 @@
 """State carried across from the JAX package.
 
 The system has no weights: what crosses over is its input and its carried
-state, the edge stream, the float32 threshold vector and the packed
-matching bits. Every function takes host numpy arrays (``np.asarray`` of
+state, the edge stream, the float32 threshold vector, the packed
+matching bits and the host-built wave schedule. Every function takes host numpy arrays (``np.asarray`` of
 the JAX package's arrays), never JAX objects, and keeps their bits.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ from repro_torch.core.types import (
     resolve_device,
     to_numpy,
 )
+from repro_torch.graph.waves import WaveSchedule
 
 
 def _exact(name: str, a, dtype) -> np.ndarray:
@@ -53,6 +54,21 @@ def config_from_reference(n: int, L: int, eps: float, thresholds, mb_layout: str
 def mb0_from_reference(mb_packed, device=None) -> torch.Tensor:
     """Carried matching bits, uint8 [n, ceil(L/8)]."""
     return torch.from_numpy(_exact("mb_packed", mb_packed, np.uint8)).to(resolve_device(device))
+
+
+def schedule_from_reference(wave, order, offsets, slots, seg_offsets) -> WaveSchedule:
+    """The port's wave schedule holding exactly the arrays of a reference
+    ``repro.graph.waves.WaveSchedule`` (all int32), so that both packages
+    run on one schedule."""
+    wave = _exact("wave", wave, np.int32)
+    return WaveSchedule(
+        wave=wave,
+        order=_exact("order", order, np.int32),
+        offsets=_exact("offsets", offsets, np.int32),
+        slots=_exact("slots", slots, np.int32),
+        seg_offsets=_exact("seg_offsets", seg_offsets, np.int32),
+        num_edges=int(wave.shape[0]),
+    )
 
 
 def result_to_numpy(result: MatchingResult):

@@ -3,6 +3,7 @@
 Public API:
   EdgeStream, SubstreamConfig, MatchingResult  — data types
   mwm_scan              — faithful Listing 1 Part 1 (CS-SEQ oracle)
+  mwm_waves             — the same over conflict-free waves (plain oracle)
   mwm_blocked           — Listing 2 blocked/lexicographic (SC-OPT path)
   merge_host            — Part 2 greedy merge
   exact_mwm_weight      — networkx oracle (tests)
@@ -24,7 +25,7 @@ from repro_torch.core.guard import (
     check_matching,
     matching_problems,
 )
-from repro_torch.core.matching import mwm_scan
+from repro_torch.core.matching import mwm_scan, mwm_waves
 from repro_torch.core.blocked import mwm_blocked, lexicographic_order, permute_stream
 from repro_torch.core.merge import merge_host, matching_weight
 from repro_torch.core.exact import exact_mwm_weight
@@ -36,24 +37,29 @@ def mwm_pipeline(
     part1: str = "scan",
     K: int = 32,
     device=None,
+    **kw,
 ):
     """End-to-end (4+eps)-approximate MWM. Returns (edge_indices, weight).
 
-    part1 in {'scan', 'blocked', 'kernel'}: the CS-SEQ loop, the blocked
-    order through that loop, or the blocked order through the CUDA kernel
-    (the JAX package's ``"pallas"``). ``device=None`` runs on the card.
+    part1 in {'scan', 'waves', 'blocked', 'kernel'}: the CS-SEQ loop, the
+    plain wave engine (``kw`` to :func:`mwm_waves`), the blocked order
+    through the CS-SEQ loop, or the blocked order through the CUDA kernels
+    (the JAX package's ``"pallas"``; ``kw`` to ``substream_match``, e.g.
+    ``schedule="mega"``). ``device=None`` runs on the card.
     """
-    if part1 in ("waves", "rounds"):
+    if part1 == "rounds":
         raise NotImplementedError(
             f"part1={part1!r} is not ported yet (ROADMAP.md §1 item 7)"
         )
     dev = resolve_device(device)
     if part1 == "scan":
         res = mwm_scan(stream, cfg, device=dev)
+    elif part1 == "waves":
+        res = mwm_waves(stream, cfg, device=dev, **kw)
     elif part1 == "blocked":
         res = mwm_blocked(stream, cfg, K=K, backend="scan", device=dev)
     elif part1 == "kernel":
-        res = mwm_blocked(stream, cfg, K=K, backend="kernel", device=dev)
+        res = mwm_blocked(stream, cfg, K=K, backend="kernel", device=dev, **kw)
     else:
         raise ValueError(part1)
     idx = merge_host(stream, res, cfg)
@@ -73,6 +79,7 @@ __all__ = [
     "StreamValidationError",
     "MatchingInvariantError",
     "mwm_scan",
+    "mwm_waves",
     "mwm_blocked",
     "lexicographic_order",
     "permute_stream",

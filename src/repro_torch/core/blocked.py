@@ -48,12 +48,14 @@ def mwm_blocked(
     K: int = 32,
     backend: str = "scan",
     device=None,
+    **kernel_kwargs,
 ) -> MatchingResult:
     """Listing 2: lexicographic blocked processing.
 
     backend='scan'   : the CS-SEQ loop over the blocked order (reference).
     backend='kernel' : :func:`repro_torch.kernels.substream_match.ops.substream_match`
-                       (the SC-OPT path; the CUDA kernel on the card).
+                       (the SC-OPT path; the CUDA kernels on the card), with
+                       ``kernel_kwargs`` (``schedule=``, ``seg_block=``, ...).
 
     ``assigned`` is returned in the *original* stream order.
     """
@@ -66,7 +68,7 @@ def mwm_blocked(
     if backend == "scan":
         res = mwm_scan(blocked, cfg, device=dev)
     elif backend == "kernel":
-        res = substream_match(blocked, cfg, device=dev)
+        res = substream_match(blocked, cfg, device=dev, **kernel_kwargs)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     assigned = torch.empty_like(res.assigned)

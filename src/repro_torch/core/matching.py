@@ -1,16 +1,17 @@
 """Faithful substream-centric MWM, Listing 1 Part 1 of the paper: the
-CS-SEQ oracle that every other Part-1 engine is held to, bit for bit.
+CS-SEQ oracle that every other Part-1 engine is held to, bit for bit, and
+the same update over conflict-free waves (:func:`mwm_waves`).
 
 One pass over the edge stream; for every edge all ``L`` substreams are
 updated at once (the FPGA's bit-parallel matching-bit word). These are
-Python loops over edges on tensors, meant for tests and for comparing a
-kernel with its plain version, not for speed.
+Python loops on tensors, meant for tests and for comparing a kernel with
+its plain version, not for speed.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.types import MatchingResult, SubstreamConfig, resolve_device
+from repro_torch.core.types import MatchingResult, SubstreamConfig, resolve_device, to_numpy
 
 
 def greedy_scan(te: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, mb: torch.Tensor):
@@ -71,3 +72,66 @@ def mwm_scan(
     )
     added = greedy_scan(te, stream.src, stream.dst, mb)
     return MatchingResult(assigned=highest_lane(added), mb=mb)
+
+
+def _wave_scan(u, v, w, ok, thr, mb):
+    """One vectorized [SEG, L] update per segment row of the fill-packed
+    slot arrays (:func:`repro_torch.graph.waves.slot_arrays`). Each row is
+    a subset of one wave, hence vertex-disjoint. ``mb`` (bool [n, L]) is
+    updated in place; returns the per-slot assigned [num_segments, SEG]."""
+    idx = torch.empty(u.shape, dtype=torch.int32, device=u.device)
+    for i in range(u.shape[0]):
+        wu, wv = u[i], v[i]
+        te = (w[i][:, None] >= thr[None, :]) & ok[i][:, None] & (wu != wv)[:, None]
+        add = te & ~mb[wu] & ~mb[wv]
+        # scatter-OR: padding slots all alias row 0 with add == False, so
+        # their duplicate indices add nothing
+        mb.index_put_((wu,), add, accumulate=True)
+        mb.index_put_((wv,), add, accumulate=True)
+        idx[i] = highest_lane(add)
+    return idx
+
+
+def mwm_waves(
+    stream,
+    cfg: SubstreamConfig,
+    schedule=None,
+    max_width: int | None = None,
+    mb0: torch.Tensor | None = None,
+    device=None,
+) -> MatchingResult:
+    """Listing 1 Part 1 over conflict-free waves (the JAX package's
+    waves_xla engine), one segment per loop step.
+
+    Decomposes the stream with :func:`repro_torch.graph.waves.wave_schedule`
+    (or validates a precomputed ``schedule``) and processes one
+    vertex-disjoint segment at a time: bit-identical to :func:`mwm_scan`
+    in ``assigned`` and ``mb``, because greedy matching is confluent over
+    vertex-disjoint edges. ``mb0`` (bool [n, L]) seeds the matching bits.
+    """
+    from repro_torch.graph import waves as _waves
+
+    dev = resolve_device(device)
+    stream = stream.to(dev)
+    if cfg.n == 0:
+        return MatchingResult(
+            assigned=torch.full((stream.num_edges,), -1, dtype=torch.int32, device=dev),
+            mb=torch.zeros((0, cfg.L), dtype=torch.bool, device=dev),
+        )
+    src, dst, weight, valid = (
+        to_numpy(t) for t in (stream.src, stream.dst, stream.weight, stream.valid)
+    )
+    schedule = _waves.resolve_schedule(src, dst, valid, schedule=schedule, max_width=max_width)
+    u, v, w, ok = (
+        torch.from_numpy(a).to(dev) for a in _waves.slot_arrays(schedule, src, dst, weight, valid)
+    )
+    mb = (
+        torch.zeros((cfg.n, cfg.L), dtype=torch.bool, device=dev)
+        if mb0 is None
+        else mb0.to(device=dev, dtype=torch.bool).clone()
+    )
+    idx = _wave_scan(u.long(), v.long(), w, ok, torch.tensor(cfg.thresholds(), device=dev), mb)
+    slots = torch.from_numpy(schedule.slots).to(dev)
+    return MatchingResult(
+        assigned=_waves.scatter_slot_assignments(slots, idx, stream.num_edges), mb=mb
+    )

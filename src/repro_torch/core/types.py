@@ -177,6 +177,10 @@ class SubstreamConfig:
     returns. Without it the vector is PyTorch's float32
     ``(1 + eps) ** arange(L)``, computed once on the host.
 
+    The vector must be non-decreasing (``ValueError`` otherwise): the
+    eligibility word of an edge is then the prefix of the thresholds it
+    passes, which the mega kernel reads as a count.
+
     ``mb_layout`` is the matching-bit storage: ``"packed"`` uint8 bit
     planes (the §4.3 BRAM-word analogue) or ``"unpacked"``.
     """
@@ -193,6 +197,8 @@ class SubstreamConfig:
             thr = np.array(thresholds, dtype=np.float32)
             if thr.shape != (L,):
                 raise ValueError(f"thresholds shape {thr.shape} != ({L},)")
+        if not (thr[1:] >= thr[:-1]).all() or np.isnan(thr).any():
+            raise ValueError("thresholds must be non-decreasing (and not NaN)")
         thr.flags.writeable = False
         for name, value in (
             ("n", int(n)), ("L", int(L)), ("eps", float(eps)),

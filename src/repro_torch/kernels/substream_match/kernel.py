@@ -1,10 +1,19 @@
-"""The CUDA kernel for Part 1 on packed bit planes, and its plain version.
+"""The CUDA kernels for Part 1 on packed bit planes, and their plain versions.
 
-:func:`substream_match_packed` replaces the TPU kernel ``_kernel_packed``
-of the JAX package (``repro/kernels/substream_match/kernel.py:117``). On a
-CUDA tensor it launches ``csrc/substream_match_packed.cu``; on a CPU tensor
-it runs :func:`substream_match_packed_plain`, the same function in plain
-PyTorch. There is no fallback between the two.
+Each wrapper replaces a TPU kernel of the JAX package
+(``repro/kernels/substream_match/kernel.py``):
+
+* :func:`substream_match_packed`, the per-edge processor ``_kernel_packed``
+  (``:117``), launches ``csrc/substream_match_packed.cu``;
+* :func:`substream_match_mega`, the tile megakernel
+  ``_kernel_waves_mega_packed`` (``:519``), and
+  :func:`substream_match_waves`, the segment kernel
+  ``_kernel_waves_packed`` (``:243``), launch
+  ``csrc/substream_match_waves.cu``.
+
+On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
+its ``*_plain`` version, the same function in plain PyTorch. There is no
+fallback between the two.
 """
 from __future__ import annotations
 
@@ -18,8 +27,17 @@ from repro_torch.kernels.substream_match import ref
 
 NAME = "substream_match_packed"
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "substream_match_packed.cu"
-#: widest row the kernel takes: 8 words per lane of one warp (L <= 2048)
+#: the two wave kernels share one source (and one library)
+MEGA_NAME = "substream_match_mega"
+WAVES_NAME = "substream_match_waves"
+WAVES_LIBRARY = "substream_match_waves"
+WAVES_SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "substream_match_waves.cu"
+#: widest row the kernels take, in uint8 words (L <= 2048)
 MAX_WIDTH = 256
+#: Extra bit-block rows past ``n_pad`` for the wave kernels: row ``n_pad``
+#: is the sacrificial row every padding slot points at; the band is 8
+#: rows to keep the row count a multiple of 8.
+SACRIFICIAL_ROWS = 8
 
 
 def _launcher():
@@ -27,6 +45,28 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_tensors(expect):
+    """Raise ``ValueError`` unless every ``(name, tensor, dtype, shape)`` has
+    that type and shape, is contiguous and lies on the first one's device."""
+    device = expect[0][1].device
+    for name, t, dtype, shape in expect:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, {expect[0][0]} on {device}")
+
+
+def _check_ids(ids, hi_ok: int):
+    if ids.numel():
+        lo, hi = (int(x) for x in torch.aminmax(ids))
+        if lo < 0 or hi > hi_ok:
+            raise ValueError(f"vertex ids span [{lo}, {hi}], outside [0, {hi_ok}]")
 
 
 def _check(edges, weights, thresholds, n_pad, mb_init):
@@ -39,19 +79,8 @@ def _check(edges, weights, thresholds, n_pad, mb_init):
     ]
     if mb_init is not None:
         expect.append(("mb_init", mb_init, torch.uint8, (n_pad, width)))
-    for name, t, dtype, shape in expect:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != edges.device:
-            raise ValueError(f"{name} on {t.device}, edges on {edges.device}")
-    if m:
-        lo, hi = (int(x) for x in torch.aminmax(edges))
-        if lo < 0 or hi >= n_pad:
-            raise ValueError(f"vertex ids span [{lo}, {hi}], outside [0, {n_pad})")
+    _check_tensors(expect)
+    _check_ids(edges, n_pad - 1)
 
 
 def substream_match_packed_plain(edges, weights, thresholds, n_pad: int, mb_init=None):
@@ -104,3 +133,232 @@ def substream_match_packed(
         raise RuntimeError(f"{NAME} launch failed: CUDA error {err}")
     build.launches[NAME] += 1
     return assigned, mb
+
+
+# --------------------------------------------------------------------------
+# The wave kernels: a fill-packed wave schedule, one wave after another.
+
+
+def _waves_launcher(name: str):
+    fn = getattr(build.load_library(WAVES_LIBRARY, WAVES_SOURCE), name)
+    ints = [ctypes.c_int] * (3 if name == MEGA_NAME else 2)  # mega adds bslots
+    fn.argtypes = [ctypes.c_void_p, *ints, *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_seg_offsets(seg_offsets, total: int, seg: int, align: int):
+    """The schedule's wave bounds: non-decreasing segment rows from 0, each
+    a multiple of ``align`` (tiles never straddle a wave), inside the
+    ``total`` slots."""
+    offs = seg_offsets.cpu()
+    if offs.numel() == 0 or int(offs[0]) != 0:
+        raise ValueError("seg_offsets must start at 0")
+    if bool((offs[1:] < offs[:-1]).any()) or bool((offs % align != 0).any()):
+        raise ValueError(f"seg_offsets must be non-decreasing multiples of {align}")
+    if int(offs[-1]) * seg > total:
+        raise ValueError(f"seg_offsets end at slot {int(offs[-1]) * seg} > {total} slots")
+
+
+def _bit_block(n_pad: int, width: int, mb_init, device):
+    rows = n_pad + SACRIFICIAL_ROWS
+    if mb_init is None:
+        return torch.zeros((rows, width), dtype=torch.uint8, device=device)
+    return mb_init.clone()
+
+
+def _prefix_te_table(width: int, device) -> torch.Tensor:
+    """[8 * width + 1, width] uint8: row c = the packed L-bit prefix mask
+    with the lowest ``c`` bits set (bit j of word k = substream 8k+j).
+    Sorted thresholds make every eligibility word such a prefix."""
+    c = torch.arange(8 * width + 1, device=device)[:, None]
+    k = torch.arange(width, device=device)[None, :]
+    nbits = (c - 8 * k).clamp(0, 8)
+    return ((1 << nbits) - 1).to(torch.uint8)
+
+
+def _high_bit_table(device) -> torch.Tensor:
+    """[256] int32: floor(log2) of a uint8 from its float32 exponent, and a
+    sentinel for 0 low enough to stay below -1 after the word offsets."""
+    i = torch.arange(256, dtype=torch.float32, device=device)
+    e = (i.view(torch.int32) >> 23) - 127
+    return torch.where(i > 0, e, -1024).to(torch.int32)
+
+
+def _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init):
+    total = weights.shape[0]
+    nbits = thresholds.shape[0]
+    if seg < 1 or seg_block < 1 or total % (seg * seg_block):
+        raise ValueError(f"{total} slots are not whole tiles of {seg_block} x {seg}")
+    if nbits % 8:
+        raise ValueError(f"thresholds: {nbits} bits are not whole uint8 words")
+    expect = [
+        ("uv", uv, torch.int32, (2 * total,)),
+        ("weights", weights, torch.float32, (total,)),
+        ("thresholds", thresholds, torch.float32, (nbits,)),
+        ("seg_offsets", seg_offsets, torch.int32, (seg_offsets.shape[0],)),
+    ]
+    if mb_init is not None:
+        expect.append(("mb_init", mb_init, torch.uint8, (n_pad + SACRIFICIAL_ROWS, nbits // 8)))
+    _check_tensors(expect)
+    if nbits and bool((thresholds[1:] < thresholds[:-1]).any() | thresholds.isnan().any()):
+        raise ValueError("thresholds must be non-decreasing: eligibility is a prefix count")
+    _check_seg_offsets(seg_offsets, total, seg, seg_block)
+    _check_ids(uv, n_pad)
+
+
+def substream_match_mega_plain(
+    uv, weights, thresholds, seg_offsets, n_pad: int, seg: int, seg_block: int, mb_init=None,
+):
+    """Plain PyTorch version of :func:`substream_match_mega`, one tile per
+    loop step as the TPU kernel: count the passing thresholds, look the
+    prefix word up, gather the tile's rows, update, scatter, and take the
+    highest bit from the log2 table."""
+    dev = uv.device
+    total = weights.shape[0]
+    bslots = seg_block * seg
+    width = thresholds.shape[0] // 8
+    mb = _bit_block(n_pad, width, mb_init, dev)
+    tiles = uv.view(-1, 2, bslots)
+    loop = (tiles[:, 0] == tiles[:, 1]).reshape(-1)
+    cnt = (weights[:, None] >= thresholds[None, :]).sum(dim=1)
+    te_all = torch.where(loop[:, None], 0, _prefix_te_table(width, dev)[cnt]).to(torch.uint8)
+    high_bit = _high_bit_table(dev)
+    word_off = 8 * torch.arange(width, dtype=torch.int32, device=dev)
+    assigned = torch.full((total,), -1, dtype=torch.int32, device=dev)
+    for t in range(int(seg_offsets[-1]) // seg_block):
+        idx = uv[2 * bslots * t : 2 * bslots * (t + 1)].long()
+        rows = mb[idx]
+        add = te_all[bslots * t : bslots * (t + 1)] & ~(rows[:bslots] | rows[bslots:])
+        mb[idx] = rows | torch.cat([add, add])
+        best = (high_bit[add.long()] + word_off).amax(dim=1).clamp_min(-1)
+        assigned[bslots * t : bslots * (t + 1)] = best.to(torch.int32)
+    return assigned, mb[:n_pad]
+
+
+def substream_match_mega(
+    uv: torch.Tensor,  # int32 [2 * total]; per tile all u's, then all v's
+    weights: torch.Tensor,  # float32 [total]; 0 on padding and self-loop slots
+    thresholds: torch.Tensor,  # float32 [8 * width], sorted, +inf pads
+    seg_offsets: torch.Tensor,  # int32 [num_waves + 1], multiples of seg_block
+    n_pad: int,
+    seg: int,
+    seg_block: int,
+    mb_init: torch.Tensor | None = None,  # uint8 [n_pad + SACRIFICIAL_ROWS, width]
+):
+    """Part 1 over the block-aligned slot stream of a wave schedule
+    (:func:`repro_torch.graph.waves.block_aligned_layout`), wave by wave.
+
+    A tile is ``seg_block * seg`` slots of one wave. Padding and self-loop
+    slots point at the sacrificial row ``n_pad`` with ``w = 0``. Returns
+    (assigned int32 [total], -1 on padding; mb uint8 [n_pad, width]).
+    Raises ``ValueError`` on an operand of the wrong type, shape or
+    device, on decreasing thresholds, on wave bounds that are not whole
+    tiles, on an id outside ``[0, n_pad]``, and on the card for a width
+    that is not a multiple of 8 or above ``MAX_WIDTH``.
+    """
+    _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init)
+    if uv.device.type == "cpu":
+        return substream_match_mega_plain(
+            uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init)
+    if uv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {uv.device}")
+    return _launch_waves(
+        MEGA_NAME, seg_offsets, seg, (seg * seg_block,), uv, weights, thresholds, n_pad,
+        thresholds.shape[0] // 8, mb_init,
+    )
+
+
+def _launch_waves(name, seg_offsets, seg, extra, ids, weights, thresholds, n_pad, width, mb_init):
+    """Launch one of the wave kernels (``extra``: mega's tile size) on the
+    current stream; returns (assigned [total], mb [n_pad, width])."""
+    if width % 8 or width > MAX_WIDTH:
+        raise ValueError(
+            f"row width {width} words: the kernel takes multiples of 8 up to "
+            f"{MAX_WIDTH} (L <= {8 * MAX_WIDTH})"
+        )
+    launch = _waves_launcher(name)
+    mb = _bit_block(n_pad, width, mb_init, ids.device)
+    assigned = torch.full((weights.shape[0],), -1, dtype=torch.int32, device=ids.device)
+    with torch.cuda.device(ids.device):
+        err = launch(
+            seg_offsets.data_ptr(), seg_offsets.shape[0] - 1, seg, *extra,
+            ids.data_ptr(), weights.data_ptr(), thresholds.data_ptr(), mb.data_ptr(),
+            assigned.data_ptr(), width, torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    build.launches[name] += 1
+    return assigned, mb[:n_pad]
+
+
+def _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init):
+    total = weights.shape[0]
+    width = thresholds.shape[-1]
+    if seg < 1 or total % seg:
+        raise ValueError(f"{total} slots are not whole segments of {seg}")
+    expect = [
+        ("edges", edges, torch.int32, (total, 2)),
+        ("weights", weights, torch.float32, (total,)),
+        ("thresholds", thresholds, torch.float32, (8, width)),
+        ("seg_offsets", seg_offsets, torch.int32, (seg_offsets.shape[0],)),
+    ]
+    if mb_init is not None:
+        expect.append(("mb_init", mb_init, torch.uint8, (n_pad + SACRIFICIAL_ROWS, width)))
+    _check_tensors(expect)
+    _check_seg_offsets(seg_offsets, total, seg, 1)
+    _check_ids(edges, n_pad)
+
+
+def substream_match_waves_plain(
+    edges, weights, thresholds, seg_offsets, n_pad: int, seg: int, mb_init=None,
+):
+    """Plain PyTorch version of :func:`substream_match_waves`, one segment
+    per loop step as the TPU kernel: bit-plane eligibility, cleared on
+    self-loops, gather, update, in-place row scatter, highest bit."""
+    dev = edges.device
+    width = thresholds.shape[1]
+    mb = _bit_block(n_pad, width, mb_init, dev)
+    shift = torch.arange(8, dtype=torch.uint8, device=dev)
+    bit_of = 8 * torch.arange(width, device=dev)[:, None] + torch.arange(8, device=dev)
+    assigned = torch.full((weights.shape[0],), -1, dtype=torch.int32, device=dev)
+    for i in range(int(seg_offsets[-1])):
+        sl = slice(i * seg, (i + 1) * seg)
+        u, v = edges[sl, 0].long(), edges[sl, 1].long()
+        mbu, mbv = mb[u], mb[v]
+        planes = weights[sl, None, None] >= thresholds[None]  # [seg, 8, width]
+        te = (planes.to(torch.uint8) << shift[:, None]).sum(dim=1).to(torch.uint8)
+        te = torch.where((u != v)[:, None], te, 0).to(torch.uint8)
+        add = te & ~mbu & ~mbv
+        mb[u] = mbu | add
+        mb[v] = mbv | add
+        hit = ((add[:, :, None] >> shift) & 1).bool()  # [seg, width, 8]
+        assigned[sl] = torch.where(hit, bit_of, -1).amax(dim=(1, 2)).to(torch.int32)
+    return assigned, mb[:n_pad]
+
+
+def substream_match_waves(
+    edges: torch.Tensor,  # int32 [total, 2]; padding slots are (n_pad, n_pad)
+    weights: torch.Tensor,  # float32 [total]; 0 on padding slots
+    thresholds: torch.Tensor,  # float32 [8, width]; thr[j, k] = substream 8k+j, +inf pads
+    seg_offsets: torch.Tensor,  # int32 [num_waves + 1]: the schedule's segment rows
+    n_pad: int,
+    seg: int,
+    mb_init: torch.Tensor | None = None,  # uint8 [n_pad + SACRIFICIAL_ROWS, width]
+):
+    """Part 1 over the fill-packed slot stream of a wave schedule
+    (:class:`repro_torch.graph.waves.WaveSchedule`), wave by wave; the
+    kernel tests ``u != v`` itself. Returns (assigned int32 [total], -1 on
+    padding; mb uint8 [n_pad, width]). Raises ``ValueError`` as
+    :func:`substream_match_mega` does, bar the threshold order.
+    """
+    _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init)
+    if edges.device.type == "cpu":
+        return substream_match_waves_plain(
+            edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init)
+    if edges.device.type != "cuda":
+        raise ValueError(f"no kernel for device {edges.device}")
+    return _launch_waves(
+        WAVES_NAME, seg_offsets, seg, (), edges, weights, thresholds, n_pad,
+        thresholds.shape[1], mb_init,
+    )

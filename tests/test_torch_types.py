@@ -86,6 +86,15 @@ def test_config_thresholds():
         SubstreamConfig(n=4, L=8, thresholds=np.ones(7, np.float32))
 
 
+@pytest.mark.parametrize("bad", [[1.0, 2.0, 1.5, 3.0], [1.0, np.nan, 2.0, 3.0]])
+def test_config_rejects_decreasing_thresholds(bad):
+    """Eligibility is the prefix of passing thresholds (the mega kernel
+    counts them), so the vector must be non-decreasing; ties are fine."""
+    SubstreamConfig(n=4, L=4, thresholds=np.array([1.0, 1.0, 2.0, np.inf], np.float32))
+    with pytest.raises(ValueError, match="non-decreasing"):
+        SubstreamConfig(n=4, L=4, thresholds=np.array(bad, np.float32))
+
+
 #: lanes where PyTorch's float32 (1.1)**i differs from the JAX package's
 #: jitted vector at L=64 (measured on the CPU; see ROADMAP.md §3 item 1)
 DIVERGENT_LANES = {32, 56}
