@@ -4,16 +4,24 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from the sources in the checkout
-(one nvcc per source, all at once), holds each against its plain PyTorch
-version on the card, then drives two paths of the paper's configuration
-(Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
+(one nvcc per source, all at once), holds each of the six against its
+plain PyTorch version on the card, then drives these paths of the paper's
+configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
 
 * the main path: blocked order -> packed per-edge kernel -> greedy merge,
   through ``mwm_pipeline(part1="kernel")``;
 * the wave path: the stream in its generated order -> host wave schedule
   -> ``substream_match(schedule="mega")`` and ``schedule="waves"``, held
   bit for bit against the per-edge kernel on the same order, merged and
-  checked; and the blocked order through the wave kernels at scale 16.
+  checked;
+* the unpacked main path, ``mwm_pipeline(part1="kernel", packed=False)``
+  (the int8 block, one byte per substream), and the unpacked wave path on
+  the wave path's schedule, each bit-equal to its packed twin;
+* the epoch path: ``match_epochs`` (4 epochs, and resumed from the state
+  after epoch 2) equal to its one-shot run, on the blocked paper stream
+  through the unpacked per-edge kernel, and at scale 16 through the wave
+  kernels in both layouts;
+* the blocked order through the wave kernels at scale 16.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -21,6 +29,7 @@ script exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
 import concurrent.futures
+import functools
 import json
 import pathlib
 import re
@@ -59,12 +68,13 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
-def bound(m, n_pad, width):
+def bound(m, n_pad, width, packed=True):
     """(bound_ms, bound_by) of Part 1 on m edges from zero bits: each input
     read once and each output written once (edge pair, weight, assigned,
-    the bit block), or the float32 threshold compares."""
+    the bit block of n_pad rows of width bytes), or the float32 threshold
+    compares (8 per packed byte, 1 per unpacked byte)."""
     nbytes = m * 16 + n_pad * width
-    ops = m * 8 * width
+    ops = m * (8 if packed else 1) * width
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -100,6 +110,7 @@ def phase_build():
     from repro_torch.kernels.substream_match import kernel
 
     loads = {kernel.NAME: kernel._launcher,
+             kernel.UNPACKED_NAME: lambda: kernel._launcher(kernel.UNPACKED_NAME),
              kernel.WAVES_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_NAME)}
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         for fut in [pool.submit(fn) for fn in loads.values()]:
@@ -135,33 +146,43 @@ def paper_stream(config=None):
     return config, stream, cfg, gen_s, h2d_s
 
 
+def _on_card(case, mb0=None):
+    """A case of :mod:`repro_torch.testing.cases` on the card, its config and ``mb0``."""
+    from repro_torch.core import EdgeStream, SubstreamConfig
+
+    stream = EdgeStream.from_numpy(case.src, case.dst, case.w, n_pad=case.m_pad)
+    return stream, SubstreamConfig(n=case.n, L=case.L, eps=case.eps), mb0
+
+
+def _head(stream, lo, hi):
+    """Edges ``[lo, hi)`` of ``stream``."""
+    import torch
+
+    from repro_torch.core import permute_stream
+
+    return permute_stream(stream, torch.arange(lo, hi, device=stream.device))
+
+
 def phase_kernel_vs_plain(paper, paper_cfg, K):
     """Every case through the kernel and its plain version on the same
     operands on the card; assigned and the bit block must be equal."""
     import torch
 
-    from repro_torch.core import EdgeStream, SubstreamConfig, lexicographic_order, permute_stream
+    from repro_torch.core import lexicographic_order, permute_stream
     from repro_torch.kernels.substream_match import kernel
     from repro_torch.kernels.substream_match.ops import kernel_inputs, substream_match
     from repro_torch.testing.cases import ZOO, rmat_case
 
-    def on_card(case, mb0=None):
-        stream = EdgeStream.from_numpy(case.src, case.dst, case.w, n_pad=case.m_pad)
-        return stream, SubstreamConfig(n=case.n, L=case.L, eps=case.eps), mb0
-
-    def head(stream, lo, hi):
-        return permute_stream(stream, torch.arange(lo, hi, device=stream.device))
-
-    cases = {f"zoo_{name}": on_card(fn()) for name, fn in ZOO.items()}
+    cases = {f"zoo_{name}": _on_card(fn()) for name, fn in ZOO.items()}
     for L, eps in ((13, 0.1), (64, 0.1), (300, 0.01)):
-        cases[f"rmat12_L{L}"] = on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
+        cases[f"rmat12_L{L}"] = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
     # carried state: the second half of a stream, seeded with the first half's bits
-    stream, cfg, _ = on_card(rmat_case(12, edge_factor=4, L=64))
+    stream, cfg, _ = _on_card(rmat_case(12, edge_factor=4, L=64))
     h = stream.num_edges // 2
-    mb0 = substream_match(head(stream, 0, h), cfg).mb_packed
-    cases["rmat12_L64_mb0"] = (head(stream, h, stream.num_edges), cfg, mb0)
+    mb0 = substream_match(_head(stream, 0, h), cfg).mb_packed
+    cases["rmat12_L64_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
     blocked = permute_stream(paper, lexicographic_order(paper, K))
-    cases["paper_blocked_prefix"] = (head(blocked, 0, PLAIN_PREFIX), paper_cfg, None)
+    cases["paper_blocked_prefix"] = (_head(blocked, 0, PLAIN_PREFIX), paper_cfg, None)
 
     results, max_err, timed = {}, 0, {}
     for name, (stream, cfg, mb0) in cases.items():
@@ -199,28 +220,20 @@ def phase_wave_kernels_vs_plain(paper, paper_cfg):
     generated order. Returns {kernel: (max_abs_err, timings at the prefix)}."""
     import torch
 
-    from repro_torch.core import EdgeStream, SubstreamConfig, permute_stream
     from repro_torch.kernels.substream_match import kernel
     from repro_torch.kernels.substream_match.ops import (
         MEGA_SEG_BLOCK, mega_inputs, resolve_stream_schedule, substream_match, waves_inputs,
     )
     from repro_torch.testing.cases import ZOO, rmat_case
 
-    def on_card(case, mb0=None):
-        stream = EdgeStream.from_numpy(case.src, case.dst, case.w, n_pad=case.m_pad)
-        return stream, SubstreamConfig(n=case.n, L=case.L, eps=case.eps), mb0
-
-    def head(stream, lo, hi):
-        return permute_stream(stream, torch.arange(lo, hi, device=stream.device))
-
-    cases = {f"zoo_{name}": on_card(fn()) for name, fn in ZOO.items()}
+    cases = {f"zoo_{name}": _on_card(fn()) for name, fn in ZOO.items()}
     for L, eps in ((13, 0.1), (64, 0.1), (300, 0.01)):
-        cases[f"rmat12_L{L}"] = on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
-    stream, cfg, _ = on_card(rmat_case(12, edge_factor=4, L=64))
+        cases[f"rmat12_L{L}"] = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
+    stream, cfg, _ = _on_card(rmat_case(12, edge_factor=4, L=64))
     h = stream.num_edges // 2
-    mb0 = substream_match(head(stream, 0, h), cfg, schedule="mega").mb_packed
-    cases["rmat12_L64_mb0"] = (head(stream, h, stream.num_edges), cfg, mb0)
-    cases["paper_generated_prefix"] = (head(paper, 0, WAVE_PLAIN_PREFIX), paper_cfg, None)
+    mb0 = substream_match(_head(stream, 0, h), cfg, schedule="mega").mb_packed
+    cases["rmat12_L64_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
+    cases["paper_generated_prefix"] = (_head(paper, 0, WAVE_PLAIN_PREFIX), paper_cfg, None)
 
     engines = {kernel.MEGA_NAME: (kernel.substream_match_mega, kernel.substream_match_mega_plain),
                kernel.WAVES_NAME: (kernel.substream_match_waves, kernel.substream_match_waves_plain)}
@@ -325,7 +338,7 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
          recorded_edges=recorded, matched_edges=int(idx.size), weight=weight,
          check_matching="passed")
     return {"m": m, "ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "launches": launches[kernel.NAME]}
+            "launches": launches[kernel.NAME], "result": result, "idx": idx, "weight": weight}
 
 
 def phase_wave_path(config, stream, cfg):
@@ -430,7 +443,7 @@ def phase_wave_path(config, stream, cfg):
          bit_equal_to_edges_kernel=True, merge_host_seconds=merge_s,
          recorded_edges=recorded, matched_edges=int(merged.size), weight=weight,
          check_matching="passed")
-    return {v["out"]["name"]: v["out"] for v in report.values()}
+    return {v["out"]["name"]: v["out"] for v in report.values()}, sch, results["mega"]
 
 
 def phase_blocked_wave_route(K):
@@ -485,6 +498,303 @@ def phase_blocked_wave_route(K):
          equal_to_edges_pipeline=True)
 
 
+def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
+    """The three unpacked kernels and their plain versions on the same
+    operands on the card: the zoo, RMAT scale 12 at L 8, 13, 64 and 300,
+    RMAT scale 10 at L 2048, a carried bool ``mb0``, seg_block 1, 2 and 4
+    for mega, the 20,000-edge blocked prefix of the paper stream for the
+    per-edge kernel and its 200,000-edge generated prefix for the wave
+    kernels. Returns {kernel: (max_abs_err, timings at the prefix)}."""
+    import torch
+
+    from repro_torch.core import lexicographic_order, permute_stream
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import (
+        MEGA_SEG_BLOCK, kernel_inputs, mega_inputs, resolve_stream_schedule, substream_match,
+        waves_inputs,
+    )
+    from repro_torch.testing.cases import ZOO, rmat_case
+
+    cases = {f"zoo_{name}": _on_card(fn()) for name, fn in ZOO.items()}
+    for L, eps in ((8, 0.1), (13, 0.1), (64, 0.1), (300, 0.01)):
+        cases[f"rmat12_L{L}"] = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
+    cases["rmat10_L2048"] = _on_card(rmat_case(10, edge_factor=4, L=2048, eps=0.002, pad=5))
+    for L, eps in ((64, 0.1), (300, 0.01)):  # carried state: the second half, seeded
+        stream, cfg, _ = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps))
+        h = stream.num_edges // 2
+        mb0 = substream_match(_head(stream, 0, h), cfg, packed=False).mb
+        cases[f"rmat12_L{L}_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
+    blocked = permute_stream(paper, lexicographic_order(paper, K))
+    edge_prefix = "paper_blocked_prefix"
+    wave_prefix = "paper_generated_prefix"
+    cases[edge_prefix] = (_head(blocked, 0, PLAIN_PREFIX), paper_cfg, None)
+    cases[wave_prefix] = (_head(paper, 0, WAVE_PLAIN_PREFIX), paper_cfg, None)
+    del blocked
+
+    names = (kernel.UNPACKED_NAME, kernel.MEGA_UNPACKED_NAME, kernel.WAVES_UNPACKED_NAME)
+    plains = {kernel.UNPACKED_NAME: kernel.substream_match_unpacked_plain,
+              kernel.MEGA_UNPACKED_NAME: functools.partial(kernel.substream_match_mega_plain,
+                                                           packed=False),
+              kernel.WAVES_UNPACKED_NAME: functools.partial(kernel.substream_match_waves_plain,
+                                                            packed=False)}
+    launches = {kernel.UNPACKED_NAME: kernel.substream_match_unpacked,
+                kernel.MEGA_UNPACKED_NAME: functools.partial(kernel.substream_match_mega,
+                                                             packed=False),
+                kernel.WAVES_UNPACKED_NAME: functools.partial(kernel.substream_match_waves,
+                                                              packed=False)}
+    results = {name: {} for name in names}
+    max_err = dict.fromkeys(names, 0)
+    timed = {}
+    for case, (stream, cfg, mb0) in cases.items():
+        variants = []
+        if case != wave_prefix:
+            variants.append((kernel.UNPACKED_NAME, None,
+                             kernel_inputs(stream, cfg, mb0, packed=False), stream.num_edges))
+        if case != edge_prefix:
+            sch = resolve_stream_schedule(stream)
+            for sb in (MEGA_SEG_BLOCK,) if case == wave_prefix else (1, 2, 4):
+                variants.append((kernel.MEGA_UNPACKED_NAME, sb,
+                                 mega_inputs(stream, cfg, sch, sb, mb0, packed=False)[0], sch))
+            variants.append((kernel.WAVES_UNPACKED_NAME, None,
+                             waves_inputs(stream, cfg, sch, mb0, packed=False)[0], sch))
+        for name, sb, args, info in variants:
+            a_k, mb_k = launches[name](*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a_p, mb_p = plains[name](*args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            err = _compare(a_k, mb_k, a_p, mb_p)
+            max_err[name] = max(max_err[name], err)
+            label = case if sb is None else f"{case}_sb{sb}"
+            results[name][label] = {"m": stream.num_edges, "L": cfg.L, "equal": err == 0,
+                                    **({} if name == kernel.UNPACKED_NAME
+                                       else {"waves": info.num_waves})}
+            if case in (edge_prefix, wave_prefix):
+                ms, _ = cuda_ms(lambda: launches[name](*args), reps=5)
+                n_pad = args[3] if name == kernel.UNPACKED_NAME else args[4]
+                width = args[2].shape[-1]
+                timed[name] = {"plain_ms": plain_s * 1e3, "ms_at_plain_m": ms,
+                               "plain_m": stream.num_edges,
+                               "bound_ms_at_plain_m": bound(stream.num_edges, n_pad, width,
+                                                            packed=False)[0]}
+    for name in names:
+        emit("kernel_vs_plain", kernel=name, cases=results[name], max_abs_err=max_err[name],
+             **timed[name])
+        bad = [k for k, v in results[name].items() if not v["equal"]]
+        if bad:
+            raise AssertionError(f"{name} differs from its plain version on {bad}")
+    return {name: (max_err[name], timed[name]) for name in names}
+
+
+def phase_unpacked_main_path(config, stream, cfg, packed_main):
+    """The unpacked main path once through the public entry point,
+    ``mwm_pipeline(part1="kernel", packed=False)``, counted; then the sort
+    and the unpacked per-edge kernel staged and timed. ``assigned``, the
+    dense bits, the merged edges and the weight must equal the packed main
+    path's. Returns the kernel's row and the blocked stream's one-shot run
+    for the epoch path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        MatchingResult, check_matching, lexicographic_order, mwm_pipeline, permute_stream,
+    )
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import device_plan, kernel_inputs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    idx, weight = mwm_pipeline(stream, cfg, part1="kernel", K=config.K, packed=False)
+    pipeline_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if launches.get(kernel.UNPACKED_NAME, 0) < 1:
+        raise AssertionError(f"the unpacked main path launched no {kernel.UNPACKED_NAME}: {launches}")
+    order = lexicographic_order(stream, config.K)
+    blocked = permute_stream(stream, order)
+    args = kernel_inputs(blocked, cfg, packed=False)
+    runs = []
+    for _ in range(3):
+        ms, (a_blk, mb) = cuda_ms(lambda: kernel.substream_match_unpacked(*args))
+        runs.append(ms)
+    del args
+    kernel_ms = sorted(runs)[1]
+    plan = device_plan(cfg.n, cfg.L, packed=False)
+    assigned = torch.empty_like(a_blk)
+    assigned[order] = a_blk
+    dense = mb[: cfg.n, : cfg.L].ne(0)
+    result = MatchingResult(assigned, mb=dense)
+    want = packed_main["result"]
+    same = {
+        "assigned": torch.equal(assigned, want.assigned),
+        "mb_dense_vs_packed_unpacked": torch.equal(dense, want.mb),
+        "merged_edges": bool(np.array_equal(idx, packed_main["idx"])),
+        "weight": weight == packed_main["weight"],
+    }
+    if not all(same.values()):
+        raise AssertionError(f"the unpacked main path differs from the packed one: {same}")
+    t0 = time.perf_counter()
+    check_matching(result, stream, cfg, merged=idx)
+    check_s = time.perf_counter() - t0
+    m = stream.num_edges
+    bound_ms, bound_by = bound(m, plan.n_pad, plan.width, packed=False)
+    emit("unpacked_main_path", config=config.name, scale=config.scale, L=cfg.L, K=config.K,
+         n=cfg.n, m=m, bit_block_bytes=plan.nbytes, row_bytes=plan.width, fits_l2=plan.fits_l2,
+         seconds={"pipeline": pipeline_s, "kernel": kernel_ms / 1e3,
+                  "kernel_runs": [t / 1e3 for t in runs], "check_matching": check_s},
+         ns_per_edge_kernel=kernel_ms * 1e6 / m, edges_per_s_pipeline=m / pipeline_s,
+         packed_kernel_ms=packed_main["ms"], unpacked_over_packed=kernel_ms / packed_main["ms"],
+         launches=launches, max_memory_allocated=peak, matched_edges=int(idx.size),
+         weight=weight, bit_equal_to_packed=same, bound_ms=bound_ms, bound_by=bound_by,
+         check_matching="passed")
+    return {"name": kernel.UNPACKED_NAME, "m": m, "ms": kernel_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches": launches[kernel.UNPACKED_NAME],
+            "fits_l2": plan.fits_l2, "blocked": blocked, "one_shot": (a_blk, dense)}
+
+
+def phase_unpacked_wave_path(config, stream, cfg, sch, packed_mega):
+    """The unpacked wave kernels at full size on the wave path's schedule
+    (generated order, passed, not rebuilt): ``substream_match(schedule=
+    "mega"|"waves", packed=False)`` counted alone, each bit-equal to the
+    packed mega result; then the kernels staged and timed."""
+    import torch
+
+    from repro_torch.graph import waves
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import (
+        device_plan, mega_inputs, substream_match, waves_inputs,
+    )
+
+    m = stream.num_edges
+    plan = device_plan(cfg.n, cfg.L, packed=False)
+    engines = {"mega": (kernel.MEGA_UNPACKED_NAME,
+                        functools.partial(kernel.substream_match_mega, packed=False), mega_inputs),
+               "waves": (kernel.WAVES_UNPACKED_NAME,
+                         functools.partial(kernel.substream_match_waves, packed=False),
+                         waves_inputs)}
+    want_mb = packed_mega.mb
+    out, report = {}, {}
+    for schedule, (name, launch, inputs) in engines.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        res = substream_match(stream, cfg, schedule=schedule, waves=sch, packed=False)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = dict(build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"the unpacked wave path launched no {name}: {launches}")
+        if not (torch.equal(res.assigned, packed_mega.assigned) and torch.equal(res.mb, want_mb)):
+            raise AssertionError(f"unpacked schedule={schedule!r} differs from the packed mega run")
+        args, slots = (inputs(stream, cfg, sch, packed=False) if schedule == "waves"
+                       else inputs(stream, cfg, sch, None, packed=False))
+        runs = []
+        for _ in range(3):
+            ms, (a_slots, mb) = cuda_ms(lambda: launch(*args))
+            runs.append(ms)
+        assigned = waves.scatter_slot_assignments(slots, a_slots, m)
+        if not (torch.equal(assigned, res.assigned)
+                and torch.equal(mb[: cfg.n, : cfg.L].ne(0), res.mb)):
+            raise AssertionError(f"the staged unpacked {schedule} run disagrees with the call")
+        kernel_ms = sorted(runs)[1]
+        total = a_slots.numel()
+        bound_ms, bound_by = bound(m, plan.n_pad, plan.width, packed=False)
+        fill = sch.num_scheduled / total if total else 1.0
+        report[schedule] = {"kernel": name, "launches": launches, "max_memory_allocated": peak,
+                            "seconds": {"substream_match_call": call_s, "kernel": kernel_ms / 1e3,
+                                        "kernel_runs": [t / 1e3 for t in runs]},
+                            "ns_per_edge_kernel": kernel_ms * 1e6 / m,
+                            "us_per_wave": kernel_ms * 1e3 / sch.num_waves,
+                            "slots": total, "slot_fill": fill}
+        out[name] = {"name": name, "m": m, "ms": kernel_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "launches": launches[name], "slot_fill": fill,
+                     "fits_l2": plan.fits_l2}
+        del args, slots, a_slots, mb, res
+    emit("unpacked_wave_path", order="generated", scale=config.scale, L=cfg.L, n=cfg.n, m=m,
+         waves=sch.num_waves, bit_block_bytes=(plan.n_pad + kernel.SACRIFICIAL_ROWS) * plan.width,
+         fits_l2=plan.fits_l2, engines=report, bit_equal_to_packed_mega=True)
+    return out
+
+
+def phase_epoch_path(cfg, unpacked):
+    """``match_epochs`` at full size on the blocked paper stream through the
+    unpacked per-edge kernel: 4 epochs equal to the one-shot run, and a
+    second run from the state after epoch 2 equal too; then the wave
+    kernels' epochs at scale 16 in generated order, both layouts, each
+    equal to its one-shot run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.paper_matching import CONFIG
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import match_epochs, substream_match
+
+    blocked = unpacked["blocked"]
+    want_a, want_mb = unpacked["one_shot"]
+
+    def run(**kw):
+        marks, states = [time.perf_counter()], {}
+
+        def hook(k, st):
+            marks.append(time.perf_counter())
+            states[k] = st
+
+        build.launches.clear()
+        t0 = time.perf_counter()
+        res = match_epochs(blocked, cfg, epochs=4, engine="edges", packed=False,
+                           epoch_hook=hook, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not (torch.equal(res.assigned, want_a) and torch.equal(res.mb, want_mb)):
+            raise AssertionError(f"match_epochs({sorted(kw)}) differs from the one-shot run")
+        return {"seconds": seconds, "epochs_run": sorted(states),
+                "epoch_seconds": [b - a for a, b in zip(marks, marks[1:])],
+                "launches": dict(build.launches)}, states
+
+    full, states = run()
+    if full["launches"].get(kernel.UNPACKED_NAME, 0) != 4:
+        raise AssertionError(f"4 epochs launched {full['launches']}")
+    resumed, _ = run(state=states[1])
+    if resumed["epochs_run"] != [2, 3]:
+        raise AssertionError(f"the resumed run ran epochs {resumed['epochs_run']}")
+    del states
+
+    small = dataclasses.replace(CONFIG, scale=BLOCKED_WAVE_SCALE)
+    _, stream, small_cfg, gen_s, _ = paper_stream(small)
+    waves_runs = {}
+    for engine in ("mega", "waves"):
+        for packed in (True, False):
+            t0 = time.perf_counter()
+            one = substream_match(stream, small_cfg, schedule=engine, packed=packed)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            build.launches.clear()
+            t0 = time.perf_counter()
+            ep = match_epochs(stream, small_cfg, epochs=4, engine=engine, packed=packed)
+            torch.cuda.synchronize()
+            ep_s = time.perf_counter() - t0
+            if not (torch.equal(ep.assigned, one.assigned) and torch.equal(ep.mb, one.mb)):
+                raise AssertionError(f"match_epochs(engine={engine!r}, packed={packed}) "
+                                     "differs from its one-shot run")
+            waves_runs[f"{engine}_{'packed' if packed else 'unpacked'}"] = {
+                "one_shot_seconds": one_s, "epochs_seconds": ep_s,
+                "launches": dict(build.launches)}
+    emit("epoch_path", engine="edges", layout="unpacked", order="blocked", m=blocked.num_edges,
+         epochs=4, full=full, resumed_from_epoch=2, resumed=resumed,
+         equal_to_one_shot=True, scale16_generated={"m": stream.num_edges,
+                                                    "generate_host_seconds": gen_s,
+                                                    "runs": waves_runs})
+
+
 def main():
     import torch
 
@@ -499,8 +809,14 @@ def main():
     max_err, timed = phase_kernel_vs_plain(stream, cfg, config.K)
     wave_checks = phase_wave_kernels_vs_plain(stream, cfg)
     main = phase_main_path(config, stream, cfg, gen_s, h2d_s)
-    wave = phase_wave_path(config, stream, cfg)
-    del stream
+    wave, sch, mega_result = phase_wave_path(config, stream, cfg)
+    unpacked_checks = phase_unpacked_kernels_vs_plain(stream, cfg, config.K)
+    unpacked = phase_unpacked_main_path(config, stream, cfg, main)
+    del main["result"]
+    unpacked_wave = phase_unpacked_wave_path(config, stream, cfg, sch, mega_result)
+    del sch, mega_result
+    phase_epoch_path(cfg, unpacked)
+    del stream, unpacked["blocked"], unpacked["one_shot"]
     phase_blocked_wave_route(config.K)
     source = "src/repro_torch/kernels/substream_match/csrc/"
     rows = [{
@@ -531,6 +847,22 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
             "library_ms": None, "m": w["m"], "slot_fill": w["slot_fill"],
             "plain_m": WAVE_PLAIN_PREFIX, "ms_at_plain_m": t["ms_at_plain_m"],
+            "bound_ms_at_plain_m": t["bound_ms_at_plain_m"], "matched_plain": err == 0,
+        })
+    for name, line, path in ((kernel.UNPACKED_NAME, 74, unpacked),
+                             (kernel.MEGA_UNPACKED_NAME, 451, unpacked_wave[kernel.MEGA_UNPACKED_NAME]),
+                             (kernel.WAVES_UNPACKED_NAME, 168, unpacked_wave[kernel.WAVES_UNPACKED_NAME])):
+        err, t = unpacked_checks[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": source + ("substream_match_unpacked.cu" if name == kernel.UNPACKED_NAME
+                                else "substream_match_waves.cu"),
+            "replaces": f"src/repro/kernels/substream_match/kernel.py:{line}",
+            "launches": path["launches"], "max_abs_err": err, "ms": path["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+            "library_ms": None, "m": path["m"], "fits_l2": path["fits_l2"],
+            **({"slot_fill": path["slot_fill"]} if "slot_fill" in path else {}),
+            "plain_m": t["plain_m"], "ms_at_plain_m": t["ms_at_plain_m"],
             "bound_ms_at_plain_m": t["bound_ms_at_plain_m"], "matched_plain": err == 0,
         })
     print(json.dumps({"kernels": rows}), flush=True)

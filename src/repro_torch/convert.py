@@ -1,15 +1,17 @@
 """State carried across from the JAX package.
 
 The system has no weights: what crosses over is its input and its carried
-state, the edge stream, the float32 threshold vector, the packed
-matching bits and the host-built wave schedule. Every function takes host numpy arrays (``np.asarray`` of
-the JAX package's arrays), never JAX objects, and keeps their bits.
+state, the edge stream, the float32 threshold vector, the matching bits
+(packed or dense), a resumable ``MatchState`` and the host-built wave
+schedule. Every function takes host numpy arrays (``np.asarray`` of the
+JAX package's arrays), never JAX objects, and keeps their bits.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.state import MatchState
 from repro_torch.core.types import (
     EdgeStream,
     MatchingResult,
@@ -51,9 +53,23 @@ def config_from_reference(n: int, L: int, eps: float, thresholds, mb_layout: str
     )
 
 
-def mb0_from_reference(mb_packed, device=None) -> torch.Tensor:
-    """Carried matching bits, uint8 [n, ceil(L/8)]."""
-    return torch.from_numpy(_exact("mb_packed", mb_packed, np.uint8)).to(resolve_device(device))
+def mb0_from_reference(mb, device=None) -> torch.Tensor:
+    """Carried matching bits in either storage: packed uint8
+    [n, ceil(L/8)] or dense bool [n, L]."""
+    a = np.asarray(mb)
+    dtype = np.bool_ if a.dtype == np.bool_ else np.uint8
+    return torch.from_numpy(_exact("mb", a, dtype)).to(resolve_device(device))
+
+
+def state_from_reference(meta: dict, arrays: dict) -> MatchState:
+    """The port's state from a JAX ``MatchState``'s ``metadata()`` and
+    ``to_arrays()`` (int32 assigned, uint8 mb, int64 recorded counts), so
+    that a run begun there finishes here; its fingerprint is the same."""
+    return MatchState.from_arrays(dict(meta), {
+        "assigned": _exact("assigned", arrays["assigned"], np.int32),
+        "mb": _exact("mb", arrays["mb"], np.uint8),
+        "recorded_counts": _exact("recorded_counts", arrays["recorded_counts"], np.int64),
+    })
 
 
 def schedule_from_reference(wave, order, offsets, slots, seg_offsets) -> WaveSchedule:
@@ -72,5 +88,7 @@ def schedule_from_reference(wave, order, offsets, slots, seg_offsets) -> WaveSch
 
 
 def result_to_numpy(result: MatchingResult):
-    """(assigned int32 [m], mb_packed uint8 [n, ceil(L/8)]) on the host."""
-    return to_numpy(result.assigned), to_numpy(result.packed())
+    """(assigned int32 [m], bits) on the host, the bits in the result's own
+    storage: mb_packed uint8 [n, ceil(L/8)], or mb bool [n, L] when dense."""
+    bits = result.mb_packed if result.is_packed else result.mb
+    return to_numpy(result.assigned), to_numpy(bits)

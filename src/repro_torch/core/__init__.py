@@ -45,7 +45,8 @@ def mwm_pipeline(
     plain wave engine (``kw`` to :func:`mwm_waves`), the blocked order
     through the CS-SEQ loop, or the blocked order through the CUDA kernels
     (the JAX package's ``"pallas"``; ``kw`` to ``substream_match``, e.g.
-    ``schedule="mega"``). ``device=None`` runs on the card.
+    ``schedule="mega"`` or ``packed=False`` for the unpacked int8 block).
+    ``device=None`` runs on the card.
     """
     if part1 == "rounds":
         raise NotImplementedError(

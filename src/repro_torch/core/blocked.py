@@ -55,7 +55,8 @@ def mwm_blocked(
     backend='scan'   : the CS-SEQ loop over the blocked order (reference).
     backend='kernel' : :func:`repro_torch.kernels.substream_match.ops.substream_match`
                        (the SC-OPT path; the CUDA kernels on the card), with
-                       ``kernel_kwargs`` (``schedule=``, ``seg_block=``, ...).
+                       ``kernel_kwargs`` (``schedule=``, ``packed=``,
+                       ``seg_block=``, ...).
 
     ``assigned`` is returned in the *original* stream order.
     """

@@ -17,6 +17,8 @@ import torch
 from repro_torch.core import bitpack
 
 _I32 = np.iinfo(np.int32)
+#: the matching-bit storages :class:`SubstreamConfig` takes
+MB_LAYOUTS = ("packed", "unpacked")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -182,7 +184,9 @@ class SubstreamConfig:
     passes, which the mega kernel reads as a count.
 
     ``mb_layout`` is the matching-bit storage: ``"packed"`` uint8 bit
-    planes (the §4.3 BRAM-word analogue) or ``"unpacked"``.
+    planes (the §4.3 BRAM-word analogue) or ``"unpacked"`` (one int8 byte
+    per substream, dense ``bool [n, L]`` results); any other value raises
+    ``ValueError``.
     """
 
     __slots__ = ("n", "L", "eps", "mb_layout", "_thr")
@@ -191,6 +195,8 @@ class SubstreamConfig:
         self, n: int, L: int, eps: float = 0.1, mb_layout: str = "packed",
         thresholds=None,
     ):
+        if mb_layout not in MB_LAYOUTS:
+            raise ValueError(f"unknown mb_layout {mb_layout!r}; use one of {MB_LAYOUTS}")
         if thresholds is None:
             thr = ((1.0 + eps) ** torch.arange(L, dtype=torch.float32)).numpy()
         else:

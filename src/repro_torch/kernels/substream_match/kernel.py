@@ -1,15 +1,20 @@
-"""The CUDA kernels for Part 1 on packed bit planes, and their plain versions.
+"""The CUDA kernels for Part 1, and their plain versions.
 
 Each wrapper replaces a TPU kernel of the JAX package
-(``repro/kernels/substream_match/kernel.py``):
+(``repro/kernels/substream_match/kernel.py``), in one of its two layouts
+of the bit block: packed uint8 bit planes (bit ``j`` of word ``k`` =
+substream ``8k + j``) or unpacked int8 (byte ``l`` = substream ``l``, set
+when non-zero).
 
 * :func:`substream_match_packed`, the per-edge processor ``_kernel_packed``
   (``:117``), launches ``csrc/substream_match_packed.cu``;
+* :func:`substream_match_unpacked`, the per-edge processor ``_kernel``
+  (``:74``), launches ``csrc/substream_match_unpacked.cu``;
 * :func:`substream_match_mega`, the tile megakernel
-  ``_kernel_waves_mega_packed`` (``:519``), and
-  :func:`substream_match_waves`, the segment kernel
-  ``_kernel_waves_packed`` (``:243``), launch
-  ``csrc/substream_match_waves.cu``.
+  ``_kernel_waves_mega_packed`` (``:519``) or, with ``packed=False``,
+  ``_kernel_waves_mega`` (``:451``), and :func:`substream_match_waves`,
+  the segment kernel ``_kernel_waves_packed`` (``:243``) or ``_kernel_waves``
+  (``:168``), launch ``csrc/substream_match_waves.cu``.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its ``*_plain`` version, the same function in plain PyTorch. There is no
@@ -22,26 +27,35 @@ import pathlib
 
 import torch
 
+from repro_torch.core.matching import highest_lane
 from repro_torch.kernels import build
 from repro_torch.kernels.substream_match import ref
 
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NAME = "substream_match_packed"
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "substream_match_packed.cu"
-#: the two wave kernels share one source (and one library)
+SOURCE = _CSRC / "substream_match_packed.cu"
+UNPACKED_NAME = "substream_match_unpacked"
+UNPACKED_SOURCE = _CSRC / "substream_match_unpacked.cu"
+#: the four wave kernels share one source (and one library)
 MEGA_NAME = "substream_match_mega"
 WAVES_NAME = "substream_match_waves"
+MEGA_UNPACKED_NAME = "substream_match_mega_unpacked"
+WAVES_UNPACKED_NAME = "substream_match_waves_unpacked"
 WAVES_LIBRARY = "substream_match_waves"
-WAVES_SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "substream_match_waves.cu"
+WAVES_SOURCE = _CSRC / "substream_match_waves.cu"
 #: widest row the kernels take, in uint8 words (L <= 2048)
 MAX_WIDTH = 256
+#: widest unpacked row the kernels take, in int8 bytes (L <= 2048)
+MAX_UNPACKED_WIDTH = 2048
 #: Extra bit-block rows past ``n_pad`` for the wave kernels: row ``n_pad``
 #: is the sacrificial row every padding slot points at; the band is 8
 #: rows to keep the row count a multiple of 8.
 SACRIFICIAL_ROWS = 8
+_EDGE_SOURCES = {NAME: SOURCE, UNPACKED_NAME: UNPACKED_SOURCE}
 
 
-def _launcher():
-    fn = build.load_library(NAME, SOURCE).substream_match_packed
+def _launcher(name: str = NAME):
+    fn = getattr(build.load_library(name, _EDGE_SOURCES[name]), name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -69,18 +83,55 @@ def _check_ids(ids, hi_ok: int):
             raise ValueError(f"vertex ids span [{lo}, {hi}], outside [0, {hi_ok}]")
 
 
-def _check(edges, weights, thresholds, n_pad, mb_init):
+def _block_dtype(packed: bool) -> torch.dtype:
+    return torch.uint8 if packed else torch.int8
+
+
+def _check(edges, weights, thresholds, n_pad, mb_init, packed=True):
     m = edges.shape[0]
     width = thresholds.shape[-1]
     expect = [
         ("edges", edges, torch.int32, (m, 2)),
         ("weights", weights, torch.float32, (m,)),
-        ("thresholds", thresholds, torch.float32, (8, width)),
+        ("thresholds", thresholds, torch.float32, (8 if packed else 1, width)),
     ]
     if mb_init is not None:
-        expect.append(("mb_init", mb_init, torch.uint8, (n_pad, width)))
+        expect.append(("mb_init", mb_init, _block_dtype(packed), (n_pad, width)))
     _check_tensors(expect)
     _check_ids(edges, n_pad - 1)
+
+
+def _check_width(width: int, packed: bool):
+    """Refuse, before a launch, a row width the card's kernels do not take:
+    the packed wave kernels' and every unpacked kernel's."""
+    if packed and (width % 8 or width > MAX_WIDTH):
+        raise ValueError(
+            f"row width {width} words: the kernels take multiples of 8 up to "
+            f"{MAX_WIDTH} (L <= {8 * MAX_WIDTH})"
+        )
+    if not packed and (width % 16 or width > MAX_UNPACKED_WIDTH):
+        raise ValueError(
+            f"row width {width} bytes: the kernels take multiples of 16 up to "
+            f"{MAX_UNPACKED_WIDTH} (L <= {MAX_UNPACKED_WIDTH})"
+        )
+
+
+def _launch_edges(name, edges, weights, thresholds, mb):
+    """Launch one of the per-edge kernels on the current stream over the
+    bit block ``mb`` (updated in place); returns assigned [m]."""
+    launch = _launcher(name)
+    m = edges.shape[0]
+    assigned = torch.empty((m,), dtype=torch.int32, device=edges.device)
+    with torch.cuda.device(edges.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            edges.data_ptr(), weights.data_ptr(), thresholds.data_ptr(),
+            mb.data_ptr(), assigned.data_ptr(), m, mb.shape[1], stream,
+        )
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    build.launches[name] += 1
+    return assigned
 
 
 def substream_match_packed_plain(edges, weights, thresholds, n_pad: int, mb_init=None):
@@ -115,24 +166,54 @@ def substream_match_packed(
     width = thresholds.shape[1]
     if width > MAX_WIDTH:
         raise ValueError(f"row width {width} words > {MAX_WIDTH} (L > {8 * MAX_WIDTH})")
-    launch = _launcher()
-    m = edges.shape[0]
     mb = (
         torch.zeros((n_pad, width), dtype=torch.uint8, device=edges.device)
         if mb_init is None
         else mb_init.clone()
     )
-    assigned = torch.empty((m,), dtype=torch.int32, device=edges.device)
-    with torch.cuda.device(edges.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            edges.data_ptr(), weights.data_ptr(), thresholds.data_ptr(),
-            mb.data_ptr(), assigned.data_ptr(), m, width, stream,
-        )
-    if err:
-        raise RuntimeError(f"{NAME} launch failed: CUDA error {err}")
-    build.launches[NAME] += 1
-    return assigned, mb
+    return _launch_edges(NAME, edges, weights, thresholds, mb), mb
+
+
+def _unpacked_block(rows: int, width: int, mb_init, device) -> torch.Tensor:
+    """The unpacked kernels' bit block: zeros, or ``mb_init`` with every
+    non-zero byte set to 1 (a non-zero byte is a set bit)."""
+    if mb_init is None:
+        return torch.zeros((rows, width), dtype=torch.int8, device=device)
+    return mb_init.ne(0).to(torch.int8)
+
+
+def substream_match_unpacked_plain(edges, weights, thresholds, n_pad: int, mb_init=None):
+    """Plain PyTorch version of :func:`substream_match_unpacked` on its own
+    operand shapes, one edge per loop step (the dense oracle); runs where
+    its tensors lie. The +inf pads of the [1, width] lanes never match."""
+    return ref.substream_match_ref(
+        edges[:, 0], edges[:, 1], weights, thresholds[0], n_pad, mb0=mb_init,
+    )
+
+
+def substream_match_unpacked(
+    edges: torch.Tensor,  # int32 [m, 2]
+    weights: torch.Tensor,  # float32 [m]; 0 marks padding/invalid edges
+    thresholds: torch.Tensor,  # float32 [1, width]; lane l = substream l, +inf pads
+    n_pad: int,
+    mb_init: torch.Tensor | None = None,  # int8 [n_pad, width] carried-in bits
+):
+    """Part 1 over the edges in the order given, one int8 byte per substream.
+
+    Returns (assigned int32 [m], mb int8 [n_pad, width] of 0/1). ``mb_init``
+    seeds the bit block instead of zeros; a non-zero byte there is a set
+    bit. Raises ``ValueError`` as :func:`substream_match_packed` does, and
+    on the card for a width that is not a multiple of 16 or above
+    ``MAX_UNPACKED_WIDTH``.
+    """
+    _check(edges, weights, thresholds, n_pad, mb_init, packed=False)
+    if edges.device.type == "cpu":
+        return substream_match_unpacked_plain(edges, weights, thresholds, n_pad, mb_init)
+    if edges.device.type != "cuda":
+        raise ValueError(f"no kernel for device {edges.device}")
+    _check_width(thresholds.shape[1], packed=False)
+    mb = _unpacked_block(n_pad, thresholds.shape[1], mb_init, edges.device)
+    return _launch_edges(UNPACKED_NAME, edges, weights, thresholds, mb), mb
 
 
 # --------------------------------------------------------------------------
@@ -141,7 +222,7 @@ def substream_match_packed(
 
 def _waves_launcher(name: str):
     fn = getattr(build.load_library(WAVES_LIBRARY, WAVES_SOURCE), name)
-    ints = [ctypes.c_int] * (3 if name == MEGA_NAME else 2)  # mega adds bslots
+    ints = [ctypes.c_int] * (3 if name in (MEGA_NAME, MEGA_UNPACKED_NAME) else 2)  # + bslots
     fn.argtypes = [ctypes.c_void_p, *ints, *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -160,8 +241,11 @@ def _check_seg_offsets(seg_offsets, total: int, seg: int, align: int):
         raise ValueError(f"seg_offsets end at slot {int(offs[-1]) * seg} > {total} slots")
 
 
-def _bit_block(n_pad: int, width: int, mb_init, device):
+def _bit_block(n_pad: int, width: int, mb_init, device, packed: bool = True):
+    """The wave kernels' bit block, ``n_pad + SACRIFICIAL_ROWS`` rows."""
     rows = n_pad + SACRIFICIAL_ROWS
+    if not packed:
+        return _unpacked_block(rows, width, mb_init, device)
     if mb_init is None:
         return torch.zeros((rows, width), dtype=torch.uint8, device=device)
     return mb_init.clone()
@@ -185,12 +269,12 @@ def _high_bit_table(device) -> torch.Tensor:
     return torch.where(i > 0, e, -1024).to(torch.int32)
 
 
-def _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init):
+def _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init, packed):
     total = weights.shape[0]
     nbits = thresholds.shape[0]
     if seg < 1 or seg_block < 1 or total % (seg * seg_block):
         raise ValueError(f"{total} slots are not whole tiles of {seg_block} x {seg}")
-    if nbits % 8:
+    if packed and nbits % 8:
         raise ValueError(f"thresholds: {nbits} bits are not whole uint8 words")
     expect = [
         ("uv", uv, torch.int32, (2 * total,)),
@@ -199,7 +283,8 @@ def _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_
         ("seg_offsets", seg_offsets, torch.int32, (seg_offsets.shape[0],)),
     ]
     if mb_init is not None:
-        expect.append(("mb_init", mb_init, torch.uint8, (n_pad + SACRIFICIAL_ROWS, nbits // 8)))
+        width = nbits // 8 if packed else nbits
+        expect.append(("mb_init", mb_init, _block_dtype(packed), (n_pad + SACRIFICIAL_ROWS, width)))
     _check_tensors(expect)
     if nbits and bool((thresholds[1:] < thresholds[:-1]).any() | thresholds.isnan().any()):
         raise ValueError("thresholds must be non-decreasing: eligibility is a prefix count")
@@ -209,29 +294,41 @@ def _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_
 
 def substream_match_mega_plain(
     uv, weights, thresholds, seg_offsets, n_pad: int, seg: int, seg_block: int, mb_init=None,
+    packed: bool = True,
 ):
     """Plain PyTorch version of :func:`substream_match_mega`, one tile per
-    loop step as the TPU kernel: count the passing thresholds, look the
-    prefix word up, gather the tile's rows, update, scatter, and take the
-    highest bit from the log2 table."""
+    loop step as the TPU kernels: count the passing thresholds, make the
+    prefix eligibility (packed: look the prefix word up; unpacked: the
+    lanes below the count), gather the tile's rows, update, scatter, and
+    take the highest substream (packed: from the log2 table)."""
     dev = uv.device
     total = weights.shape[0]
     bslots = seg_block * seg
-    width = thresholds.shape[0] // 8
-    mb = _bit_block(n_pad, width, mb_init, dev)
+    width = thresholds.shape[0] // 8 if packed else thresholds.shape[0]
+    mb = _bit_block(n_pad, width, mb_init, dev, packed)
     tiles = uv.view(-1, 2, bslots)
     loop = (tiles[:, 0] == tiles[:, 1]).reshape(-1)
     cnt = (weights[:, None] >= thresholds[None, :]).sum(dim=1)
-    te_all = torch.where(loop[:, None], 0, _prefix_te_table(width, dev)[cnt]).to(torch.uint8)
-    high_bit = _high_bit_table(dev)
-    word_off = 8 * torch.arange(width, dtype=torch.int32, device=dev)
+    if packed:
+        te_all = torch.where(loop[:, None], 0, _prefix_te_table(width, dev)[cnt]).to(torch.uint8)
+        high_bit = _high_bit_table(dev)
+        word_off = 8 * torch.arange(width, dtype=torch.int32, device=dev)
+    else:
+        lane = torch.arange(width, device=dev)
+        te_all = ((lane[None, :] < cnt[:, None]) & ~loop[:, None]).to(torch.int8)
     assigned = torch.full((total,), -1, dtype=torch.int32, device=dev)
     for t in range(int(seg_offsets[-1]) // seg_block):
         idx = uv[2 * bslots * t : 2 * bslots * (t + 1)].long()
         rows = mb[idx]
-        add = te_all[bslots * t : bslots * (t + 1)] & ~(rows[:bslots] | rows[bslots:])
+        mbu, mbw = rows[:bslots], rows[bslots:]
+        te = te_all[bslots * t : bslots * (t + 1)]
+        if packed:
+            add = te & ~(mbu | mbw)
+            best = (high_bit[add.long()] + word_off).amax(dim=1).clamp_min(-1)
+        else:
+            add = te & ((mbu == 0) & (mbw == 0)).to(torch.int8)
+            best = highest_lane(add != 0)
         mb[idx] = rows | torch.cat([add, add])
-        best = (high_bit[add.long()] + word_off).amax(dim=1).clamp_min(-1)
         assigned[bslots * t : bslots * (t + 1)] = best.to(torch.int32)
     return assigned, mb[:n_pad]
 
@@ -239,46 +336,48 @@ def substream_match_mega_plain(
 def substream_match_mega(
     uv: torch.Tensor,  # int32 [2 * total]; per tile all u's, then all v's
     weights: torch.Tensor,  # float32 [total]; 0 on padding and self-loop slots
-    thresholds: torch.Tensor,  # float32 [8 * width], sorted, +inf pads
+    thresholds: torch.Tensor,  # float32 [nbits], sorted, +inf pads
     seg_offsets: torch.Tensor,  # int32 [num_waves + 1], multiples of seg_block
     n_pad: int,
     seg: int,
     seg_block: int,
-    mb_init: torch.Tensor | None = None,  # uint8 [n_pad + SACRIFICIAL_ROWS, width]
+    mb_init: torch.Tensor | None = None,  # [n_pad + SACRIFICIAL_ROWS, width]
+    packed: bool = True,
 ):
     """Part 1 over the block-aligned slot stream of a wave schedule
     (:func:`repro_torch.graph.waves.block_aligned_layout`), wave by wave.
 
     A tile is ``seg_block * seg`` slots of one wave. Padding and self-loop
-    slots point at the sacrificial row ``n_pad`` with ``w = 0``. Returns
-    (assigned int32 [total], -1 on padding; mb uint8 [n_pad, width]).
-    Raises ``ValueError`` on an operand of the wrong type, shape or
-    device, on decreasing thresholds, on wave bounds that are not whole
-    tiles, on an id outside ``[0, n_pad]``, and on the card for a width
-    that is not a multiple of 8 or above ``MAX_WIDTH``.
+    slots point at the sacrificial row ``n_pad`` with ``w = 0``. The
+    layout is uint8 bit planes, ``nbits = 8 * width`` thresholds
+    (``packed``), or int8 bytes, ``nbits = width`` (``packed=False``, the
+    TPU's ``_kernel_waves_mega``). Returns (assigned int32 [total], -1 on
+    padding; mb [n_pad, width] in the layout's type). Raises
+    ``ValueError`` on an operand of the wrong type, shape or device, on
+    decreasing thresholds, on wave bounds that are not whole tiles, on an
+    id outside ``[0, n_pad]``, and on the card for a width the kernel
+    does not take (``_check_width``).
     """
-    _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init)
+    _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init, packed)
     if uv.device.type == "cpu":
         return substream_match_mega_plain(
-            uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init)
+            uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init, packed)
     if uv.device.type != "cuda":
         raise ValueError(f"no kernel for device {uv.device}")
     return _launch_waves(
-        MEGA_NAME, seg_offsets, seg, (seg * seg_block,), uv, weights, thresholds, n_pad,
-        thresholds.shape[0] // 8, mb_init,
+        MEGA_NAME if packed else MEGA_UNPACKED_NAME, seg_offsets, seg, (seg * seg_block,),
+        uv, weights, thresholds, n_pad,
+        thresholds.shape[0] // 8 if packed else thresholds.shape[0], mb_init, packed,
     )
 
 
-def _launch_waves(name, seg_offsets, seg, extra, ids, weights, thresholds, n_pad, width, mb_init):
+def _launch_waves(name, seg_offsets, seg, extra, ids, weights, thresholds, n_pad, width,
+                  mb_init, packed):
     """Launch one of the wave kernels (``extra``: mega's tile size) on the
     current stream; returns (assigned [total], mb [n_pad, width])."""
-    if width % 8 or width > MAX_WIDTH:
-        raise ValueError(
-            f"row width {width} words: the kernel takes multiples of 8 up to "
-            f"{MAX_WIDTH} (L <= {8 * MAX_WIDTH})"
-        )
+    _check_width(width, packed)
     launch = _waves_launcher(name)
-    mb = _bit_block(n_pad, width, mb_init, ids.device)
+    mb = _bit_block(n_pad, width, mb_init, ids.device, packed)
     assigned = torch.full((weights.shape[0],), -1, dtype=torch.int32, device=ids.device)
     with torch.cuda.device(ids.device):
         err = launch(
@@ -292,7 +391,7 @@ def _launch_waves(name, seg_offsets, seg, extra, ids, weights, thresholds, n_pad
     return assigned, mb[:n_pad]
 
 
-def _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init):
+def _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init, packed):
     total = weights.shape[0]
     width = thresholds.shape[-1]
     if seg < 1 or total % seg:
@@ -300,11 +399,11 @@ def _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init):
     expect = [
         ("edges", edges, torch.int32, (total, 2)),
         ("weights", weights, torch.float32, (total,)),
-        ("thresholds", thresholds, torch.float32, (8, width)),
+        ("thresholds", thresholds, torch.float32, (8 if packed else 1, width)),
         ("seg_offsets", seg_offsets, torch.int32, (seg_offsets.shape[0],)),
     ]
     if mb_init is not None:
-        expect.append(("mb_init", mb_init, torch.uint8, (n_pad + SACRIFICIAL_ROWS, width)))
+        expect.append(("mb_init", mb_init, _block_dtype(packed), (n_pad + SACRIFICIAL_ROWS, width)))
     _check_tensors(expect)
     _check_seg_offsets(seg_offsets, total, seg, 1)
     _check_ids(edges, n_pad)
@@ -312,13 +411,15 @@ def _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init):
 
 def substream_match_waves_plain(
     edges, weights, thresholds, seg_offsets, n_pad: int, seg: int, mb_init=None,
+    packed: bool = True,
 ):
     """Plain PyTorch version of :func:`substream_match_waves`, one segment
-    per loop step as the TPU kernel: bit-plane eligibility, cleared on
-    self-loops, gather, update, in-place row scatter, highest bit."""
+    per loop step as the TPU kernels: eligibility (packed: bit planes;
+    unpacked: one compare per lane), cleared on self-loops, gather,
+    update, in-place row scatter, highest substream."""
     dev = edges.device
     width = thresholds.shape[1]
-    mb = _bit_block(n_pad, width, mb_init, dev)
+    mb = _bit_block(n_pad, width, mb_init, dev, packed)
     shift = torch.arange(8, dtype=torch.uint8, device=dev)
     bit_of = 8 * torch.arange(width, device=dev)[:, None] + torch.arange(8, device=dev)
     assigned = torch.full((weights.shape[0],), -1, dtype=torch.int32, device=dev)
@@ -326,39 +427,49 @@ def substream_match_waves_plain(
         sl = slice(i * seg, (i + 1) * seg)
         u, v = edges[sl, 0].long(), edges[sl, 1].long()
         mbu, mbv = mb[u], mb[v]
-        planes = weights[sl, None, None] >= thresholds[None]  # [seg, 8, width]
-        te = (planes.to(torch.uint8) << shift[:, None]).sum(dim=1).to(torch.uint8)
-        te = torch.where((u != v)[:, None], te, 0).to(torch.uint8)
-        add = te & ~mbu & ~mbv
+        if packed:
+            planes = weights[sl, None, None] >= thresholds[None]  # [seg, 8, width]
+            te = (planes.to(torch.uint8) << shift[:, None]).sum(dim=1).to(torch.uint8)
+            te = torch.where((u != v)[:, None], te, 0).to(torch.uint8)
+            add = te & ~mbu & ~mbv
+            hit = ((add[:, :, None] >> shift) & 1).bool()  # [seg, width, 8]
+            best = torch.where(hit, bit_of, -1).amax(dim=(1, 2)).to(torch.int32)
+        else:
+            te = (weights[sl, None] >= thresholds) & (u != v)[:, None]  # [seg, width]
+            add = (te & (mbu == 0) & (mbv == 0)).to(torch.int8)
+            best = highest_lane(add != 0)
         mb[u] = mbu | add
         mb[v] = mbv | add
-        hit = ((add[:, :, None] >> shift) & 1).bool()  # [seg, width, 8]
-        assigned[sl] = torch.where(hit, bit_of, -1).amax(dim=(1, 2)).to(torch.int32)
+        assigned[sl] = best
     return assigned, mb[:n_pad]
 
 
 def substream_match_waves(
     edges: torch.Tensor,  # int32 [total, 2]; padding slots are (n_pad, n_pad)
     weights: torch.Tensor,  # float32 [total]; 0 on padding slots
-    thresholds: torch.Tensor,  # float32 [8, width]; thr[j, k] = substream 8k+j, +inf pads
+    thresholds: torch.Tensor,  # float32 [8, width] bit planes, or [1, width] lanes; +inf pads
     seg_offsets: torch.Tensor,  # int32 [num_waves + 1]: the schedule's segment rows
     n_pad: int,
     seg: int,
-    mb_init: torch.Tensor | None = None,  # uint8 [n_pad + SACRIFICIAL_ROWS, width]
+    mb_init: torch.Tensor | None = None,  # [n_pad + SACRIFICIAL_ROWS, width]
+    packed: bool = True,
 ):
     """Part 1 over the fill-packed slot stream of a wave schedule
     (:class:`repro_torch.graph.waves.WaveSchedule`), wave by wave; the
-    kernel tests ``u != v`` itself. Returns (assigned int32 [total], -1 on
-    padding; mb uint8 [n_pad, width]). Raises ``ValueError`` as
+    kernel tests ``u != v`` itself. The layout is uint8 bit planes with
+    ``thr[j, k]`` = substream ``8k + j`` (``packed``) or int8 bytes with
+    one threshold lane each (``packed=False``, the TPU's
+    ``_kernel_waves``). Returns (assigned int32 [total], -1 on padding;
+    mb [n_pad, width] in the layout's type). Raises ``ValueError`` as
     :func:`substream_match_mega` does, bar the threshold order.
     """
-    _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init)
+    _check_waves(edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init, packed)
     if edges.device.type == "cpu":
         return substream_match_waves_plain(
-            edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init)
+            edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init, packed)
     if edges.device.type != "cuda":
         raise ValueError(f"no kernel for device {edges.device}")
     return _launch_waves(
-        WAVES_NAME, seg_offsets, seg, (), edges, weights, thresholds, n_pad,
-        thresholds.shape[1], mb_init,
+        WAVES_NAME if packed else WAVES_UNPACKED_NAME, seg_offsets, seg, (), edges, weights,
+        thresholds, n_pad, thresholds.shape[1], mb_init, packed,
     )

@@ -1,12 +1,21 @@
-"""Typed and padded entry point of Part 1: :func:`substream_match`.
+"""Typed and padded entry point of Part 1, :func:`substream_match`, and
+the resumable epoch executor :func:`match_epochs`.
 
-The bit block is ``mb[n_pad, width]`` uint8, bit ``j`` of word ``k`` =
-substream ``8k + j`` (:mod:`repro_torch.core.bitpack`). :func:`device_plan`
-gives its geometry on the H100: at the paper's size (2^20 vertices, L=64)
-it is 8 MiB and stays resident in the card's 50 MB L2. :func:`wave_plan`
-and :func:`mega_plan` add the geometry of a wave schedule's slot stream.
-The TPU plans' VMEM budget and grid blocks have no counterpart: the wave
-kernels are one block that walks the whole slot stream.
+The bit block has two layouts (``SubstreamConfig.mb_layout``, or
+``packed=`` per call), bit-identical in ``assigned`` and the bits:
+
+* packed: ``mb[n_pad, width]`` uint8, bit ``j`` of word ``k`` = substream
+  ``8k + j`` (:mod:`repro_torch.core.bitpack`); at the paper's size (2^20
+  vertices, L=64) 8 MiB, resident in the card's 50 MB L2;
+* unpacked: ``mb[n_pad, L_pad]`` int8, one byte per substream, rows of
+  ``L_pad = round_up(L, 16)`` bytes; 64 MiB at the paper's size, which
+  the L2 does not hold. Results come back dense (``bool [n, L]``).
+
+:func:`device_plan` gives the block's geometry; :func:`wave_plan` and
+:func:`mega_plan` add that of a wave schedule's slot stream. The TPU
+plans' VMEM budget, 128-lane padding and grid blocks have no
+counterpart: the wave kernels are one block that walks the whole slot
+stream.
 """
 from __future__ import annotations
 
@@ -15,10 +24,20 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.snapshots import SnapshotCorruptError, SnapshotMismatchError
 from repro_torch.core import bitpack
-from repro_torch.core.types import MatchingResult, SubstreamConfig, resolve_device, to_numpy
+from repro_torch.core import matching as _matching
+from repro_torch.core.state import MatchState
+from repro_torch.core.types import (
+    EdgeStream,
+    MatchingResult,
+    SubstreamConfig,
+    resolve_device,
+    to_numpy,
+)
 from repro_torch.graph import waves as _waves
 from repro_torch.kernels.substream_match import kernel as _kernel
+from repro_torch.kernels.substream_match import ref as _ref
 
 #: L2 cache of one H100
 L2_BYTES = 50 * 2**20
@@ -30,26 +49,38 @@ def _round_up(x: int, mult: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class DevicePlan:
-    """Geometry of the bit block: ``n_pad`` rows of ``width`` uint8 words
-    (``words = ceil(L/8)`` of them hold bits, the rest are +inf-threshold
-    padding), ``nbytes = n_pad * width``, and whether it fits the L2."""
+    """Geometry of the bit block: ``n_pad`` rows of ``width`` bytes, of
+    which ``words`` hold bits (packed: ``ceil(L/8)`` uint8 words; unpacked:
+    ``L`` int8 bytes) and the rest are +inf-threshold padding;
+    ``nbytes = n_pad * width``, whether it fits the L2, and the layout."""
 
     n_pad: int
     width: int
     words: int
     nbytes: int
     fits_l2: bool
+    packed: bool = True
 
 
-def device_plan(n: int, L: int, free_bytes: int | None = None) -> DevicePlan:
+def device_plan(
+    n: int, L: int, free_bytes: int | None = None, packed: bool = True
+) -> DevicePlan:
     """Plan the bit block for ``n`` vertices and ``L`` substreams.
 
+    Packed rows are ``ceil(L/8)`` words rounded up to 8 (one 64-bit word
+    for the wave kernels); unpacked rows are ``L`` bytes rounded up to 16,
+    whole 16-byte vector loads and whole 64-bit words for the wave kernels
+    (the TPU's ``round_up(L, 128)`` is lane padding for its vector unit).
     Raises ``ValueError`` when ``free_bytes`` (the card's free memory) is
     given and the block would not fit in it.
     """
     n_pad = _round_up(max(n, 1), 8)
-    words = bitpack.packed_width(max(L, 1))
-    width = _round_up(words, 8)
+    if packed:
+        words = bitpack.packed_width(max(L, 1))
+        width = _round_up(words, 8)
+    else:
+        words = max(L, 1)
+        width = _round_up(words, 16)
     nbytes = n_pad * width
     if free_bytes is not None and nbytes > free_bytes:
         raise ValueError(
@@ -58,7 +89,7 @@ def device_plan(n: int, L: int, free_bytes: int | None = None) -> DevicePlan:
         )
     return DevicePlan(
         n_pad=n_pad, width=width, words=words, nbytes=nbytes,
-        fits_l2=nbytes <= L2_BYTES,
+        fits_l2=nbytes <= L2_BYTES, packed=packed,
     )
 
 
@@ -95,8 +126,9 @@ class WavePlan(DevicePlan):
         return self.num_segments * self.seg
 
 
-def _slot_plan(n, L, seg, num_waves, num_segments, fill, free_bytes, **mega) -> WavePlan:
-    base = device_plan(n, L)
+def _slot_plan(n, L, seg, num_waves, num_segments, fill, free_bytes, packed,
+               **mega) -> WavePlan:
+    base = device_plan(n, L, packed=packed)
     plan = WavePlan(
         **dataclasses.asdict(base), seg=seg, num_waves=num_waves,
         num_segments=num_segments, fill=fill, **mega,
@@ -112,14 +144,16 @@ def _slot_plan(n, L, seg, num_waves, num_segments, fill, free_bytes, **mega) -> 
     return plan
 
 
-def wave_plan(n: int, L: int, schedule, free_bytes: int | None = None) -> WavePlan:
+def wave_plan(
+    n: int, L: int, schedule, free_bytes: int | None = None, packed: bool = True
+) -> WavePlan:
     """Plan the segment kernel over ``schedule`` (a
-    :class:`repro_torch.graph.waves.WaveSchedule`). Raises ``ValueError``
-    when ``free_bytes`` is given and the bit block and slot stream would
-    not fit in it."""
+    :class:`repro_torch.graph.waves.WaveSchedule`) in the given layout.
+    Raises ``ValueError`` when ``free_bytes`` is given and the bit block
+    and slot stream would not fit in it."""
     return _slot_plan(
         n, L, int(schedule.width), int(schedule.num_waves),
-        int(schedule.num_segments), float(schedule.fill), free_bytes,
+        int(schedule.num_segments), float(schedule.fill), free_bytes, packed,
     )
 
 
@@ -129,52 +163,85 @@ def wave_plan(n: int, L: int, schedule, free_bytes: int | None = None) -> WavePl
 MEGA_SEG_BLOCK = 2
 
 
-def mega_plan(n: int, L: int, layout, free_bytes: int | None = None) -> WavePlan:
+def mega_plan(
+    n: int, L: int, layout, free_bytes: int | None = None, packed: bool = True
+) -> WavePlan:
     """Plan the tile megakernel over ``layout`` (a
-    :class:`repro_torch.graph.waves.BlockAlignedLayout`). Raises
-    ``ValueError`` as :func:`wave_plan` does."""
+    :class:`repro_torch.graph.waves.BlockAlignedLayout`) in the given
+    layout of the bit block. Raises ``ValueError`` as :func:`wave_plan`
+    does."""
     return _slot_plan(
         n, L, int(layout.width), int(layout.seg_offsets.shape[0] - 1),
-        int(layout.num_segments), float(layout.fill), free_bytes,
+        int(layout.num_segments), float(layout.fill), free_bytes, packed,
         seg_block=int(layout.seg_block), num_tiles=int(layout.num_tiles),
     )
 
 
-def _thresholds_padded(cfg: SubstreamConfig, width: int, device) -> torch.Tensor:
-    """Kernel-shaped thresholds: [8, width] bit planes, thr[j, k] =
-    substream 8k+j, +inf pads."""
-    flat = np.full(width * bitpack.BITS, np.inf, np.float32)
+def _thresholds_padded(cfg: SubstreamConfig, width: int, device, packed: bool = True):
+    """Kernel-shaped thresholds, +inf pads: [8, width] bit planes, thr[j, k]
+    = substream 8k+j (packed), or [1, width] lanes (unpacked)."""
+    nbits = width * bitpack.BITS if packed else width
+    flat = np.full(nbits, np.inf, np.float32)
     flat[: cfg.L] = cfg.thresholds()
-    return torch.from_numpy(flat.reshape(width, bitpack.BITS).T.copy()).to(device)
+    if packed:
+        return torch.from_numpy(flat.reshape(width, bitpack.BITS).T.copy()).to(device)
+    return torch.from_numpy(flat[None]).to(device)
 
 
-def _thresholds_flat(cfg: SubstreamConfig, width: int, device) -> torch.Tensor:
-    """Megakernel-shaped thresholds: the sorted float32 [8 * width] vector,
-    +inf pads. Eligibility is then the prefix of the passing count."""
-    flat = np.full(width * bitpack.BITS, np.inf, np.float32)
+def _thresholds_flat(cfg: SubstreamConfig, nbits: int, device) -> torch.Tensor:
+    """Megakernel-shaped thresholds: the sorted float32 [nbits] vector,
+    +inf pads (nbits = 8 * width packed, width unpacked). Eligibility is
+    then the prefix of the passing count."""
+    flat = np.full(nbits, np.inf, np.float32)
     flat[: cfg.L] = cfg.thresholds()
     return torch.from_numpy(flat).to(device)
 
 
-def _mb0_pad(mb0: torch.Tensor, n: int, words: int, rows: int, width: int, device):
-    """Pad caller-format initial bits (uint8 [n, words]) to the kernel's
-    block [rows, width]; the padding is zero."""
+def _mb0_pad(mb0: torch.Tensor, n: int, words: int, rows: int, width: int, device,
+             packed: bool = True):
+    """Pad caller-format initial bits (packed: uint8 [n, words]; unpacked:
+    bool [n, L], any non-zero value a set bit) to the kernel's block
+    [rows, width] (uint8 packed, int8 of 0/1 unpacked); the padding is
+    zero."""
     if tuple(mb0.shape) != (n, words):
         raise ValueError(f"mb0 shape {tuple(mb0.shape)} != ({n}, {words})")
-    out = torch.zeros((rows, width), dtype=torch.uint8, device=device)
-    out[:n, :words] = mb0.to(device=device, dtype=torch.uint8)
+    mb0 = mb0.to(device)
+    if packed:
+        out = torch.zeros((rows, width), dtype=torch.uint8, device=device)
+        out[:n, :words] = mb0.to(torch.uint8)
+    else:
+        out = torch.zeros((rows, width), dtype=torch.int8, device=device)
+        out[:n, :words] = mb0.ne(0).to(torch.int8)
     return out
 
 
-def _empty_result(stream, cfg: SubstreamConfig) -> MatchingResult:
+def _resolve_packed(cfg: SubstreamConfig, packed: bool | None) -> bool:
+    """``packed=None`` follows ``cfg.mb_layout``."""
+    return cfg.mb_layout != "unpacked" if packed is None else bool(packed)
+
+
+def _result(assigned, mb, cfg: SubstreamConfig, packed: bool) -> MatchingResult:
+    """The caller's storage of a kernel's block: packed ``mb_packed`` uint8
+    [n, ceil(L/8)], or dense ``mb`` bool [n, L]."""
+    if packed:
+        return MatchingResult(
+            assigned=assigned, mb_packed=mb[: cfg.n, : bitpack.packed_width(cfg.L)], L=cfg.L
+        )
+    return MatchingResult(assigned=assigned, mb=mb[: cfg.n, : cfg.L].ne(0))
+
+
+def _empty_result(stream, cfg: SubstreamConfig, packed: bool = True) -> MatchingResult:
     """Well-formed nothing-matched result (n == 0 vertex spaces)."""
     dev = stream.device
+    assigned = torch.full((stream.num_edges,), -1, dtype=torch.int32, device=dev)
+    if packed:
+        words = bitpack.packed_width(max(cfg.L, 1))
+        return MatchingResult(
+            assigned=assigned, mb_packed=torch.zeros((0, words), dtype=torch.uint8, device=dev),
+            L=cfg.L,
+        )
     return MatchingResult(
-        assigned=torch.full((stream.num_edges,), -1, dtype=torch.int32, device=dev),
-        mb_packed=torch.zeros(
-            (0, bitpack.packed_width(max(cfg.L, 1))), dtype=torch.uint8, device=dev
-        ),
-        L=cfg.L,
+        assigned=assigned, mb=torch.zeros((0, cfg.L), dtype=torch.bool, device=dev)
     )
 
 
@@ -187,13 +254,19 @@ def substream_match(
     waves=None,
     max_width: int | None = None,
     seg_block: int | None = None,
+    packed: bool | None = None,
 ) -> MatchingResult:
     """Run Part 1 on the given stream order.
 
-    ``mb0`` (uint8 ``[n, ceil(L/8)]``) seeds the matching bits with
-    carried-in state; default zeros. ``device=None`` runs on the CUDA card
-    through the kernels; ``device="cpu"`` runs their plain versions.
-    Returns packed storage: ``mb_packed`` uint8 ``[n, ceil(L/8)]``.
+    ``packed`` picks the bit block's layout; ``None`` follows
+    ``cfg.mb_layout``. Packed runs return ``mb_packed`` uint8
+    ``[n, ceil(L/8)]``; unpacked runs (``packed=False`` or
+    ``mb_layout="unpacked"``) return dense ``mb`` bool ``[n, L]``. Both
+    are bit-identical in ``assigned`` and ``mb``. ``mb0`` seeds the
+    matching bits with carried-in state in the same storage (uint8
+    ``[n, ceil(L/8)]`` packed, bool ``[n, L]`` unpacked); default zeros.
+    ``device=None`` runs on the CUDA card through the kernels;
+    ``device="cpu"`` runs their plain versions.
 
     ``schedule`` picks the engine; all three give the same bits:
 
@@ -210,35 +283,28 @@ def substream_match(
 
     ``waves`` passes a precomputed schedule for this stream order (it is
     validated, not rebuilt); ``max_width`` caps the wave width when one is
-    built here. Only ``mb_layout="packed"`` is ported; the unpacked
-    layout raises ``NotImplementedError``.
+    built here.
     """
     if schedule not in ("edges", "waves", "mega"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if cfg.mb_layout == "unpacked":
-        raise NotImplementedError(
-            "mb_layout='unpacked' is not ported yet (ROADMAP.md §1 item 8)"
-        )
-    if cfg.mb_layout != "packed":
-        raise ValueError(f"unknown mb_layout {cfg.mb_layout!r}")
+    packed = _resolve_packed(cfg, packed)
     dev = resolve_device(device)
     stream = stream.to(dev)
     if cfg.n == 0:
-        return _empty_result(stream, cfg)
+        return _empty_result(stream, cfg, packed)
     if schedule == "edges":
-        assigned, mb = _kernel.substream_match_packed(*kernel_inputs(stream, cfg, mb0))
+        launch = _kernel.substream_match_packed if packed else _kernel.substream_match_unpacked
+        assigned, mb = launch(*kernel_inputs(stream, cfg, mb0, packed))
     else:
         sch = resolve_stream_schedule(stream, waves, max_width)
         if schedule == "waves":
-            args, slots = waves_inputs(stream, cfg, sch, mb0)
-            assigned_slots, mb = _kernel.substream_match_waves(*args)
+            args, slots = waves_inputs(stream, cfg, sch, mb0, packed)
+            assigned_slots, mb = _kernel.substream_match_waves(*args, packed=packed)
         else:
-            args, slots = mega_inputs(stream, cfg, sch, seg_block, mb0)
-            assigned_slots, mb = _kernel.substream_match_mega(*args)
+            args, slots = mega_inputs(stream, cfg, sch, seg_block, mb0, packed)
+            assigned_slots, mb = _kernel.substream_match_mega(*args, packed=packed)
         assigned = _waves.scatter_slot_assignments(slots, assigned_slots, stream.num_edges)
-    return MatchingResult(
-        assigned=assigned, mb_packed=mb[: cfg.n, : bitpack.packed_width(cfg.L)], L=cfg.L
-    )
+    return _result(assigned, mb, cfg, packed)
 
 
 def resolve_stream_schedule(stream, waves=None, max_width: int | None = None):
@@ -256,20 +322,23 @@ def _host_stream(stream):
     return tuple(to_numpy(t) for t in (stream.src, stream.dst, stream.weight, stream.valid))
 
 
-def waves_inputs(stream, cfg: SubstreamConfig, sch, mb0: torch.Tensor | None = None):
+def waves_inputs(
+    stream, cfg: SubstreamConfig, sch, mb0: torch.Tensor | None = None, packed: bool = True,
+):
     """The segment kernel's operands for ``stream`` under schedule ``sch``,
     and the slot map (int32 [slots], -1 on padding) that
     :func:`repro_torch.graph.waves.scatter_slot_assignments` reads.
 
     Operands ``(edges, weights, thresholds, seg_offsets, n_pad, seg,
-    mb_init)``: the fill-packed slot stream as int32 [slots, 2] endpoints
-    and float32 [slots] weights, padding slots remapped to the
+    mb_init)``: the fill-packed slot stream as int32 [slots, 2]
+    endpoints and float32 [slots] weights, padding slots remapped to the
     sacrificial row ``n_pad`` with weight 0 (self-loops stay: the kernel
-    tests them), the [8, width] bit-plane thresholds, the schedule's
-    segment offsets, and ``mb0`` padded to the kernel's block.
+    tests them), the thresholds ([8, width] bit planes packed, [1, width]
+    lanes unpacked), the schedule's segment offsets, and ``mb0`` padded
+    to the kernel's block. The kernel takes ``packed`` besides.
     """
     dev = stream.device
-    plan = wave_plan(cfg.n, cfg.L, sch, free_bytes=_free_bytes(dev))
+    plan = wave_plan(cfg.n, cfg.L, sch, free_bytes=_free_bytes(dev), packed=packed)
     src, dst, weight, valid = _host_stream(stream)
     u, v, w, ok = _waves.slot_arrays(sch, src, dst, weight, valid)
     sac = np.int32(plan.n_pad)
@@ -277,7 +346,7 @@ def waves_inputs(stream, cfg: SubstreamConfig, sch, mb0: torch.Tensor | None = N
     args = (
         torch.from_numpy(edges).to(dev),
         torch.from_numpy(w.reshape(-1)).to(dev),
-        _thresholds_padded(cfg, plan.width, dev),
+        _thresholds_padded(cfg, plan.width, dev, plan.packed),
         torch.from_numpy(sch.seg_offsets).to(dev),
         plan.n_pad,
         plan.seg,
@@ -288,7 +357,7 @@ def waves_inputs(stream, cfg: SubstreamConfig, sch, mb0: torch.Tensor | None = N
 
 def mega_inputs(
     stream, cfg: SubstreamConfig, sch, seg_block: int | None = None,
-    mb0: torch.Tensor | None = None,
+    mb0: torch.Tensor | None = None, packed: bool = True,
 ):
     """The tile megakernel's operands for ``stream`` under schedule
     ``sch``, and the slot map as :func:`waves_inputs` gives it.
@@ -298,13 +367,14 @@ def mega_inputs(
     ``(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block,
     mb_init)``: per tile all u's then all v's (int32), float32 weights,
     padding *and* self-loop slots remapped to the sacrificial row
-    ``n_pad`` with weight 0, the sorted flat thresholds, the layout's
-    block-aligned segment offsets, and ``mb0`` padded to the block.
+    ``n_pad`` with weight 0, the sorted flat thresholds (8 * width
+    packed, width unpacked), the layout's block-aligned segment offsets,
+    and ``mb0`` padded to the block. The kernel takes ``packed`` besides.
     """
     dev = stream.device
     seg_block = MEGA_SEG_BLOCK if seg_block is None else seg_block
     layout = _waves.block_aligned_layout(sch, seg_block)
-    plan = mega_plan(cfg.n, cfg.L, layout, free_bytes=_free_bytes(dev))
+    plan = mega_plan(cfg.n, cfg.L, layout, free_bytes=_free_bytes(dev), packed=packed)
     src, dst, weight, _ = _host_stream(stream)
     flat = layout.slots.reshape(-1)
     live = flat >= 0
@@ -323,7 +393,7 @@ def mega_inputs(
     args = (
         torch.from_numpy(uv.reshape(-1)).to(dev),
         torch.from_numpy(wflat).to(dev),
-        _thresholds_flat(cfg, plan.width, dev),
+        _thresholds_flat(cfg, plan.width * bitpack.BITS if plan.packed else plan.width, dev),
         torch.from_numpy(layout.seg_offsets).to(dev),
         plan.n_pad,
         plan.seg,
@@ -334,24 +404,201 @@ def mega_inputs(
 
 
 def _mb0_block(mb0, cfg: SubstreamConfig, plan: WavePlan, dev):
-    return None if mb0 is None else _mb0_pad(mb0, cfg.n, plan.words, plan.rows, plan.width, dev)
+    if mb0 is None:
+        return None
+    return _mb0_pad(mb0, cfg.n, plan.words, plan.rows, plan.width, dev, plan.packed)
 
 
-def kernel_inputs(stream, cfg: SubstreamConfig, mb0: torch.Tensor | None = None):
-    """The kernel's operands ``(edges, weights, thresholds, n_pad, mb_init)``
-    for a stream on its device: int32 [m, 2] edges and float32 [m] weights
-    (invalid edges as vertex 0 with weight 0), the [8, width] bit-plane
-    thresholds, and ``mb0`` padded to the block (``None`` stays ``None``)."""
+def kernel_inputs(
+    stream, cfg: SubstreamConfig, mb0: torch.Tensor | None = None, packed: bool = True,
+):
+    """A per-edge kernel's operands ``(edges, weights, thresholds, n_pad,
+    mb_init)`` for a stream on its device: int32 [m, 2] edges and float32
+    [m] weights (invalid edges as vertex 0 with weight 0), the thresholds
+    ([8, width] bit planes packed, [1, width] lanes unpacked), and ``mb0``
+    padded to the block (``None`` stays ``None``)."""
     dev = stream.device
-    plan = device_plan(cfg.n, cfg.L, free_bytes=_free_bytes(dev))
+    plan = device_plan(cfg.n, cfg.L, free_bytes=_free_bytes(dev), packed=packed)
     valid = stream.valid
     edges = torch.stack(
         [torch.where(valid, stream.src, 0), torch.where(valid, stream.dst, 0)], dim=1
     ).to(torch.int32)
     w = torch.where(valid, stream.weight.to(torch.float32), 0.0)
-    thr = _thresholds_padded(cfg, plan.width, dev)
+    thr = _thresholds_padded(cfg, plan.width, dev, plan.packed)
     mb_init = (
         None if mb0 is None
-        else _mb0_pad(mb0, cfg.n, plan.words, plan.n_pad, plan.width, dev)
+        else _mb0_pad(mb0, cfg.n, plan.words, plan.n_pad, plan.width, dev, plan.packed)
     )
     return edges, w, thr, plan.n_pad, mb_init
+
+
+# --------------------------------------------------------------------------
+# Resumable chunked execution.
+
+#: Engines :func:`match_epochs` can drive: the three kernel schedules
+#: (through :func:`substream_match`), the plain CS-SEQ scan ``"scan"``
+#: (:func:`repro_torch.core.mwm_scan`), the plain wave engine
+#: ``"waves_xla"`` (:func:`repro_torch.core.mwm_waves`, named after the
+#: JAX package's XLA engine) and the oracles ``"ref"``. All take the
+#: carried bits, so every engine is epoch-chunkable.
+EPOCH_ENGINES = ("edges", "waves", "mega", "scan", "waves_xla", "ref")
+
+
+def epoch_bounds(num_edges: int, epochs: int) -> list[int]:
+    """Stream positions of the epoch barriers: ``epochs + 1`` monotone
+    bounds with near-equal slices (``round(i * m / E)``). Fixed by
+    ``(m, E)`` alone, so a resumed run recomputes the same barriers."""
+    if epochs < 1:
+        raise ValueError(f"epochs must be >= 1, got {epochs}")
+    return [round(i * num_edges / epochs) for i in range(epochs + 1)]
+
+
+def _mb0_dense(mb0, cfg: SubstreamConfig, packed: bool):
+    """Caller-format initial bits as the dense bool [n, L] the plain
+    engines take."""
+    if mb0 is None:
+        return None
+    return bitpack.unpack_bits(mb0, cfg.L) if packed else mb0.ne(0)
+
+
+def _repack(result: MatchingResult, packed: bool) -> MatchingResult:
+    """A dense result in the storage the caller asked for, so every engine
+    keeps the layout's ``is_packed`` contract (the bits are the same)."""
+    if packed and not result.is_packed:
+        return MatchingResult(
+            assigned=result.assigned, mb_packed=bitpack.pack_bits(result.mb), L=result.L
+        )
+    return result
+
+
+def _run_engine(
+    engine: str, stream, cfg: SubstreamConfig, *, packed: bool, device,
+    max_width: int | None = None, seg_block: int | None = None, mb0=None,
+) -> MatchingResult:
+    """Run one engine of :data:`EPOCH_ENGINES` on ``stream`` (on ``device``)
+    from the carried bits ``mb0`` (caller storage: uint8 [n, words] packed
+    / bool [n, L] dense); the plain engines take the dense view."""
+    if engine in ("edges", "waves", "mega"):
+        return substream_match(
+            stream, cfg, mb0=mb0, device=device, schedule=engine, max_width=max_width,
+            seg_block=seg_block, packed=packed,
+        )
+    if engine == "waves_xla":
+        return _repack(
+            _matching.mwm_waves(
+                stream, cfg, max_width=max_width, mb0=_mb0_dense(mb0, cfg, packed), device=device
+            ),
+            packed,
+        )
+    if engine == "scan":
+        return _repack(
+            _matching.mwm_scan(stream, cfg, mb0=_mb0_dense(mb0, cfg, packed), device=device),
+            packed,
+        )
+    if engine == "ref":
+        valid = stream.valid  # invalid edges enter as vertex 0 with weight 0, as in the kernels
+        src, dst = (torch.where(valid, t, 0) for t in (stream.src, stream.dst))
+        w = torch.where(valid, stream.weight.to(torch.float32), 0.0)
+        thr = torch.from_numpy(cfg.thresholds().copy()).to(stream.device)
+        if packed:
+            assigned, mb = _ref.substream_match_ref_packed(src, dst, w, thr, cfg.n, mb0=mb0)
+            return MatchingResult(assigned=assigned, mb_packed=mb, L=cfg.L)
+        assigned, mb = _ref.substream_match_ref(src, dst, w, thr, cfg.n, mb0=mb0)
+        return MatchingResult(assigned=assigned, mb=mb.ne(0))
+    raise ValueError(f"unknown engine {engine!r}")
+
+
+def _refuse_unported(snapshots, guard, telemetry, validate: str, on_plan_failure: str):
+    if on_plan_failure not in ("raise", "fallback"):
+        raise ValueError(f"unknown on_plan_failure {on_plan_failure!r}; use 'raise' or 'fallback'")
+    unported = [
+        ("snapshots=", snapshots is not None, "§1 item 10"),
+        ("guard=", guard is not None, "§1 item 10"),
+        ("on_plan_failure='fallback'", on_plan_failure == "fallback", "§1 item 9"),
+        (f"validate={validate!r}", validate != "off", "§1 item 9"),
+        ("telemetry=", telemetry is not None, "§1 item 11"),
+    ]
+    for what, asked, item in unported:
+        if asked:
+            raise NotImplementedError(f"match_epochs({what}) is not ported yet (ROADMAP.md {item})")
+
+
+def match_epochs(
+    stream,
+    cfg: SubstreamConfig,
+    *,
+    epochs: int = 1,
+    engine: str = "mega",
+    state: MatchState | None = None,
+    snapshots=None,
+    guard=None,
+    packed: bool | None = None,
+    telemetry=None,
+    validate: str = "off",
+    on_plan_failure: str = "raise",
+    max_width: int | None = None,
+    seg_block: int | None = None,
+    epoch_hook=None,
+    device=None,
+) -> MatchingResult:
+    """Run Part 1 chunked into ``epochs`` resumable epochs.
+
+    The stream is cut at :func:`epoch_bounds`; each epoch runs ``engine``
+    (one of :data:`EPOCH_ENGINES`) on its slice with the carried matching
+    bits as ``mb0`` and folds the result into a
+    :class:`repro_torch.core.state.MatchState` on the host. Epoch bounds
+    are barriers, so a wave schedule sees only the chains inside its
+    epoch, and the result is bit-identical to the one-shot run for every
+    engine: greedy matching is confluent in the carried bits, and the
+    epochs' ``assigned`` slices concatenate.
+
+    ``state`` resumes from a carried state (this package's, or the JAX
+    package's through :func:`repro_torch.convert.state_from_reference`):
+    only the stream suffix past ``state.pos`` runs. A state made for
+    another stream, config or storage raises
+    :class:`~repro_torch.checkpoint.snapshots.SnapshotMismatchError`; one
+    that does not hold together (:meth:`MatchState.problems`) raises
+    :class:`~repro_torch.checkpoint.snapshots.SnapshotCorruptError`.
+    ``epoch_hook(epoch_index, state)`` fires after each epoch.
+
+    ``packed=None`` follows ``cfg.mb_layout``; ``device=None`` runs on the
+    card, and the result's tensors lie there. ``snapshots=``, ``guard=``,
+    ``on_plan_failure="fallback"``, ``validate`` other than ``"off"`` and
+    ``telemetry=`` are not ported and raise ``NotImplementedError``.
+    """
+    if engine not in EPOCH_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; use {EPOCH_ENGINES}")
+    _refuse_unported(snapshots, guard, telemetry, validate, on_plan_failure)
+    packed = _resolve_packed(cfg, packed)
+    dev = resolve_device(device)
+    stream = stream.to(dev)
+    if cfg.n == 0:
+        return _empty_result(stream, cfg, packed)
+    template = MatchState.initial(stream, cfg, packed)
+    if state is None:
+        state = template
+    elif state.fingerprint != template.fingerprint:
+        raise SnapshotMismatchError(
+            f"carried state fingerprints {state.fingerprint!r}, run fingerprints "
+            f"{template.fingerprint!r}: another stream, config or storage layout"
+        )
+    elif state.problems():
+        raise SnapshotCorruptError(f"carried state is inconsistent: {state.problems()}")
+    bounds = epoch_bounds(stream.num_edges, epochs)
+    for k in range(epochs):
+        a, b = max(bounds[k], state.pos), bounds[k + 1]
+        if b <= state.pos:
+            continue  # already in the carried state
+        sub = EdgeStream(
+            src=stream.src[a:b], dst=stream.dst[a:b],
+            weight=stream.weight[a:b], valid=stream.valid[a:b],
+        )
+        mb0 = None if state.mb0 is None else torch.from_numpy(state.mb0.copy()).to(dev)
+        out = _run_engine(
+            engine, sub, cfg, packed=packed, device=dev, max_width=max_width,
+            seg_block=seg_block, mb0=mb0,
+        )
+        state = state.advance(out, b)
+        if epoch_hook is not None:
+            epoch_hook(k, state)
+    return state.result(dev)

@@ -1,9 +1,12 @@
-"""Card-only tests of the port: the CUDA kernels against their plain
-versions, and the main path on the card against the same path on the CPU. They skip
-without a CUDA device; on a machine with an NVIDIA card run
+"""Card-only tests of the port: the CUDA kernels (packed and unpacked
+layouts) against their plain versions, with and without carried bits, and
+the main path and the epoch executor on the card against the same calls on
+the CPU. They skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -13,8 +16,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.substream_match import kernel
 from repro_torch.kernels.substream_match.ops import (
     kernel_inputs,
+    match_epochs,
     mega_inputs,
     resolve_stream_schedule,
+    substream_match,
     waves_inputs,
 )
 from repro_torch.testing.cases import ZOO, rmat_case
@@ -50,13 +55,18 @@ def test_kernel_matches_plain_version(cuda, case):
     assert torch.equal(mb, want_mb)
 
 
-def _wave_operands(schedule, stream, cfg, seg_block):
+def _wave_operands(schedule, stream, cfg, seg_block, mb0=None, packed=True):
     sch = resolve_stream_schedule(stream)
     if schedule == "mega":
-        args, _ = mega_inputs(stream, cfg, sch, seg_block)
-        return kernel.MEGA_NAME, kernel.substream_match_mega, kernel.substream_match_mega_plain, args
-    args, _ = waves_inputs(stream, cfg, sch)
-    return kernel.WAVES_NAME, kernel.substream_match_waves, kernel.substream_match_waves_plain, args
+        args, _ = mega_inputs(stream, cfg, sch, seg_block, mb0, packed)
+        name = kernel.MEGA_NAME if packed else kernel.MEGA_UNPACKED_NAME
+        launch, plain = kernel.substream_match_mega, kernel.substream_match_mega_plain
+    else:
+        args, _ = waves_inputs(stream, cfg, sch, mb0, packed)
+        name = kernel.WAVES_NAME if packed else kernel.WAVES_UNPACKED_NAME
+        launch, plain = kernel.substream_match_waves, kernel.substream_match_waves_plain
+    return (name, functools.partial(launch, packed=packed), functools.partial(plain, packed=packed),
+            args)
 
 
 @pytest.mark.parametrize("schedule, seg_block", [("mega", 1), ("mega", 2), ("mega", 4), ("waves", None)])
@@ -72,7 +82,69 @@ def test_wave_kernels_match_plain_versions(cuda, case, schedule, seg_block):
     assert torch.equal(mb, want_mb)
 
 
-@pytest.mark.parametrize("kw", [{}, {"schedule": "waves"}, {"schedule": "mega"}])
+def _carried(case, device):
+    """The second half of ``case`` on ``device`` and the first half's dense
+    bits (bool [n, L]), from the plain scan."""
+    stream, cfg = _on(case, device)
+    h = stream.num_edges // 2
+    head, tail = (EdgeStream(*(t[sl] for t in (stream.src, stream.dst, stream.weight, stream.valid)))
+                  for sl in (slice(0, h), slice(h, None)))
+    mb0 = substream_match(head, cfg, device="cpu", packed=False).mb.to(device)
+    return tail, cfg, mb0
+
+
+UNPACKED_CASES = {**CASES,
+                  "rmat8_L13": lambda: rmat_case(8, edge_factor=4, L=13, pad=3),
+                  "rmat8_L2048": lambda: rmat_case(8, edge_factor=4, L=2048, eps=0.002)}
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("case", sorted(UNPACKED_CASES))
+def test_unpacked_kernel_matches_plain_version(cuda, case, carried):
+    c = UNPACKED_CASES[case]()
+    stream, cfg, mb0 = _carried(c, cuda) if carried else (*_on(c, cuda), None)
+    args = kernel_inputs(stream, cfg, mb0, packed=False)
+    before = build.launches[kernel.UNPACKED_NAME]
+    assigned, mb = kernel.substream_match_unpacked(*args)
+    assert build.launches[kernel.UNPACKED_NAME] == before + 1
+    want_a, want_mb = kernel.substream_match_unpacked_plain(*args)
+    torch.cuda.synchronize()
+    assert mb.dtype == torch.int8
+    assert torch.equal(assigned, want_a)
+    assert torch.equal(mb, want_mb)
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("schedule, seg_block", [("mega", 1), ("mega", 2), ("waves", None)])
+@pytest.mark.parametrize("case", sorted(UNPACKED_CASES))
+def test_unpacked_wave_kernels_match_plain_versions(cuda, case, schedule, seg_block, carried):
+    c = UNPACKED_CASES[case]()
+    stream, cfg, mb0 = _carried(c, cuda) if carried else (*_on(c, cuda), None)
+    name, launch, plain, args = _wave_operands(schedule, stream, cfg, seg_block, mb0, packed=False)
+    before = build.launches[name]
+    assigned, mb = launch(*args)
+    assert build.launches[name] == before + 1
+    want_a, want_mb = plain(*args)
+    torch.cuda.synchronize()
+    assert mb.dtype == torch.int8
+    assert torch.equal(assigned, want_a)
+    assert torch.equal(mb, want_mb)
+
+
+@pytest.mark.parametrize("engine", ["edges", "waves", "mega"])
+@pytest.mark.parametrize("packed", [True, False])
+def test_epochs_on_card_match_cpu(cuda, engine, packed):
+    c = CASES["rmat10_L64"]()
+    got = match_epochs(*_on(c, cuda), epochs=3, engine=engine, packed=packed)
+    want = match_epochs(*_on(c, "cpu"), epochs=3, engine="scan", packed=packed, device="cpu")
+    assert got.is_packed == packed
+    assert torch.equal(got.assigned.cpu(), want.assigned)
+    assert torch.equal(got.mb.cpu(), want.mb)
+
+
+@pytest.mark.parametrize("kw", [{}, {"schedule": "waves"}, {"schedule": "mega"},
+                                {"packed": False}, {"schedule": "waves", "packed": False},
+                                {"schedule": "mega", "packed": False}])
 @pytest.mark.parametrize("case", ["bipartite", "unaligned_n", "rmat10_L64"])
 def test_pipeline_on_card_matches_cpu(cuda, case, kw):
     c = CASES[case]()
@@ -94,3 +166,12 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         kernel.substream_match_waves(torch.zeros((8, 2), dtype=torch.int32, device=cuda),
                                      torch.ones(8, device=cuda),
                                      torch.ones((8, 12), device=cuda), offs, 8, 8)
+    with pytest.raises(ValueError, match="width"):
+        kernel.substream_match_unpacked(edges, w, torch.ones((1, 24), device=cuda), 8)
+    with pytest.raises(ValueError, match="width"):
+        kernel.substream_match_unpacked(
+            edges, w, torch.ones((1, kernel.MAX_UNPACKED_WIDTH + 16), device=cuda), 8)
+    with pytest.raises(ValueError, match="width"):
+        kernel.substream_match_waves(torch.zeros((8, 2), dtype=torch.int32, device=cuda),
+                                     torch.ones(8, device=cuda),
+                                     torch.ones((1, 24), device=cuda), offs, 8, 8, packed=False)

@@ -13,7 +13,12 @@ import torch
 
 from repro_torch.core import EdgeStream, SubstreamConfig, mwm_pipeline
 from repro_torch.kernels.substream_match import kernel
-from repro_torch.kernels.substream_match.ops import L2_BYTES, device_plan, substream_match
+from repro_torch.kernels.substream_match.ops import (
+    L2_BYTES,
+    device_plan,
+    match_epochs,
+    substream_match,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -62,18 +67,44 @@ def test_entry_points_default_to_the_card(monkeypatch):
         EdgeStream.from_numpy([0], [1], [1.0])
 
 
-@pytest.mark.parametrize("schedule", ["waves", "mega"])
-def test_unported_schedules_raise(schedule):
-    """The wave schedules are ported; their unpacked layout is not."""
+@pytest.mark.parametrize("schedule", ["edges", "waves", "mega"])
+def test_unpacked_runs_on_the_cpu_when_asked(schedule):
+    """The unpacked layout is ported: with ``device="cpu"`` it runs the
+    plain versions and returns dense bits."""
     cfg = SubstreamConfig(n=3, L=8, mb_layout="unpacked")
+    r = substream_match(_cpu_stream(), cfg, schedule=schedule, device="cpu")
+    assert not r.is_packed and r.mb.dtype == torch.bool
+    assert r.assigned.tolist() == [7, -1]
+
+
+def test_unpacked_and_epochs_default_to_the_card(monkeypatch):
+    """Without a card, ``device=None`` raises for the unpacked layout and for
+    the epoch executor too: nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stream = _cpu_stream()
+    cfg = SubstreamConfig(n=3, L=8, mb_layout="unpacked")
+    for schedule in ("edges", "waves", "mega"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            substream_match(stream, cfg, schedule=schedule)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mwm_pipeline(stream, SubstreamConfig(n=3, L=8), part1="kernel", packed=False)
+    for engine in ("edges", "scan"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            match_epochs(stream, cfg, epochs=2, engine=engine)
+
+
+@pytest.mark.parametrize("kw", [{"snapshots": object()}, {"guard": object()},
+                                {"on_plan_failure": "fallback"}, {"validate": "strict"},
+                                {"telemetry": object()}])
+def test_unported_epoch_parameters_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        substream_match(_cpu_stream(), cfg, schedule=schedule, device="cpu")
+        match_epochs(_cpu_stream(), SubstreamConfig(n=3, L=8), engine="scan", device="cpu", **kw)
 
 
 def test_unported_layout_and_engines_raise():
     stream = _cpu_stream()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        substream_match(stream, SubstreamConfig(n=3, L=8, mb_layout="unpacked"), device="cpu")
+    with pytest.raises(ValueError, match="mb_layout"):
+        SubstreamConfig(n=3, L=8, mb_layout="dense")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mwm_pipeline(stream, SubstreamConfig(n=3, L=8), part1="rounds", device="cpu")
     with pytest.raises(ValueError):
