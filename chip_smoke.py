@@ -79,6 +79,34 @@ def bound(m, n_pad, width, packed=True):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def window_share(edges):
+    """Shares of the edges (int32 [m, 2] on the card) that the per-edge
+    kernels forward to: an endpoint that an earlier edge of the window
+    touched (the previous batch or the earlier lanes of its own), and the
+    part of those whose toucher is in the edge's own batch."""
+    import torch
+
+    from repro_torch.kernels.substream_match import kernel
+
+    m, batch = edges.shape[0], kernel.EDGE_BATCH
+    if m == 0:
+        return {"window": 0.0, "own_batch": 0.0}
+    vert = edges.reshape(-1)
+    pos = torch.arange(2 * m, device=edges.device) // 2
+    order = torch.argsort(vert, stable=True)
+    v_s, p_s = vert[order], pos[order]
+    prev = torch.full_like(p_s, -1)
+    prev[1:] = torch.where(v_s[1:] == v_s[:-1], p_s[:-1], -1)
+    hit = (prev >= 0) & (prev < p_s)  # a self-loop's second endpoint is not its own toucher
+    start = (p_s // batch) * batch
+    shares = {}
+    for key, lo in (("window", (start - batch).clamp_min(0)), ("own_batch", start)):
+        per_edge = torch.zeros(m, dtype=torch.int32, device=edges.device)
+        per_edge.index_add_(0, p_s, (hit & (prev >= lo)).to(torch.int32))
+        shares[key] = float((per_edge > 0).float().mean())
+    return shares
+
+
 def phase_device():
     import torch
 
@@ -109,19 +137,22 @@ def phase_build():
     from repro_torch.kernels import build
     from repro_torch.kernels.substream_match import kernel
 
-    loads = {kernel.NAME: kernel._launcher,
-             kernel.UNPACKED_NAME: lambda: kernel._launcher(kernel.UNPACKED_NAME),
+    loads = {kernel.EDGES_LIBRARY: kernel._launcher,
              kernel.WAVES_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_NAME)}
+    sources = {kernel.EDGES_LIBRARY: kernel.EDGES_SOURCE, kernel.WAVES_LIBRARY: kernel.WAVES_SOURCE}
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         for fut in [pool.submit(fn) for fn in loads.values()]:
             fut.result()
     for name in loads:
         info = build.builds[name]
         entries = _ptxas_entries(info["ptxas"])
-        emit("build", library=name, seconds=info["seconds"], built=info["built"],
-             entries=entries)
+        emit("build", library=name, source=sources[name].name, seconds=info["seconds"],
+             built=info["built"], entries=entries)
         if not info["built"] or not entries:
             raise RuntimeError(f"{name} was not built from the checkout's source")
+        spilled = {k: v for k, v in entries.items() if v["spill_bytes"]}
+        if spilled:
+            raise RuntimeError(f"{name} spills registers: {spilled}")
 
 
 def paper_stream(config=None):
@@ -163,24 +194,43 @@ def _head(stream, lo, hi):
     return permute_stream(stream, torch.arange(lo, hi, device=stream.device))
 
 
+def _window_cases():
+    """The streams aimed at the per-edge kernels' batch window
+    (:data:`repro_torch.testing.cases.WINDOW`) at L = 64, and the hub and
+    the pairs 33 edges apart at L = 2048 (32 column chunks)."""
+    from repro_torch.testing.cases import WINDOW
+
+    cases = {f"window_{name}": _on_card(fn()) for name, fn in WINDOW.items()}
+    for name in ("hub", "repeat_d33"):
+        cases[f"window_{name}_L2048"] = _on_card(WINDOW[name](2048))
+    return cases
+
+
 def phase_kernel_vs_plain(paper, paper_cfg, K):
     """Every case through the kernel and its plain version on the same
-    operands on the card; assigned and the bit block must be equal."""
+    operands on the card; assigned and the bit block must be equal: the
+    zoo, the window cases, RMAT at L 13, 64, 300 and 2048, carried bits
+    (also at L 2048), and the blocked paper prefix."""
     import torch
 
     from repro_torch.core import lexicographic_order, permute_stream
     from repro_torch.kernels.substream_match import kernel
     from repro_torch.kernels.substream_match.ops import kernel_inputs, substream_match
-    from repro_torch.testing.cases import ZOO, rmat_case
+    from repro_torch.testing.cases import WINDOW, ZOO, rmat_case
 
     cases = {f"zoo_{name}": _on_card(fn()) for name, fn in ZOO.items()}
+    cases.update(_window_cases())
     for L, eps in ((13, 0.1), (64, 0.1), (300, 0.01)):
         cases[f"rmat12_L{L}"] = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
+    cases["rmat10_L2048"] = _on_card(rmat_case(10, edge_factor=4, L=2048, eps=0.002, pad=5))
     # carried state: the second half of a stream, seeded with the first half's bits
-    stream, cfg, _ = _on_card(rmat_case(12, edge_factor=4, L=64))
-    h = stream.num_edges // 2
-    mb0 = substream_match(_head(stream, 0, h), cfg).mb_packed
-    cases["rmat12_L64_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
+    for label, case in (("rmat12_L64", rmat_case(12, edge_factor=4, L=64)),
+                        ("rmat10_L2048", rmat_case(10, edge_factor=4, L=2048, eps=0.002)),
+                        ("window_hub_L2048", WINDOW["hub"](2048))):
+        stream, cfg, _ = _on_card(case)
+        h = stream.num_edges // 2
+        mb0 = substream_match(_head(stream, 0, h), cfg).mb_packed
+        cases[f"{label}_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
     blocked = permute_stream(paper, lexicographic_order(paper, K))
     cases["paper_blocked_prefix"] = (_head(blocked, 0, PLAIN_PREFIX), paper_cfg, None)
 
@@ -303,6 +353,7 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
 
     sort_ms, (order, blocked) = cuda_ms(sort)
     args = kernel_inputs(blocked, cfg)
+    shares = window_share(args[0])
     kernel_runs = []
     for _ in range(3):
         ms, (a_blk, mb) = cuda_ms(lambda: kernel.substream_match_packed(*args))
@@ -333,7 +384,7 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
                   "kernel_runs": [t / 1e3 for t in kernel_runs],
                   "merge_host": merge_s, "check_matching": check_s},
          edges_per_s_pipeline=m / pipeline_s, edges_per_s_part1_kernel=m / (kernel_ms / 1e3),
-         ns_per_edge_kernel=kernel_ms * 1e6 / m,
+         ns_per_edge_kernel=kernel_ms * 1e6 / m, window_share=shares,
          launches=launches, max_memory_allocated=peak,
          recorded_edges=recorded, matched_edges=int(idx.size), weight=weight,
          check_matching="passed")
@@ -418,6 +469,7 @@ def phase_wave_path(config, stream, cfg):
         del args, slots, a_slots, mb
     # the per-edge kernel on the same (generated) order, once
     args = kernel_inputs(stream, cfg)
+    shares = window_share(args[0])
     edges_ms, (a_e, mb_e) = cuda_ms(lambda: kernel.substream_match_packed(*args))
     del args
     for schedule, res in results.items():
@@ -439,7 +491,8 @@ def phase_wave_path(config, stream, cfg):
                    "segments": sch.num_segments, "fill": sch.fill,
                    "median_wave": float(np.median(sizes)), "max_wave": int(sizes.max())},
          engines={k: {kk: vv for kk, vv in v.items() if kk != "out"} for k, v in report.items()},
-         edges_kernel_same_order={"ms": edges_ms, "ns_per_edge": edges_ms * 1e6 / m},
+         edges_kernel_same_order={"ms": edges_ms, "ns_per_edge": edges_ms * 1e6 / m,
+                                  "window_share": shares},
          bit_equal_to_edges_kernel=True, merge_host_seconds=merge_s,
          recorded_edges=recorded, matched_edges=int(merged.size), weight=weight,
          check_matching="passed")
@@ -500,8 +553,9 @@ def phase_blocked_wave_route(K):
 
 def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
     """The three unpacked kernels and their plain versions on the same
-    operands on the card: the zoo, RMAT scale 12 at L 8, 13, 64 and 300,
-    RMAT scale 10 at L 2048, a carried bool ``mb0``, seg_block 1, 2 and 4
+    operands on the card: the zoo, the window cases, RMAT scale 12 at L 8,
+    13, 64 and 300, RMAT scale 10 at L 2048, a carried bool ``mb0`` (also
+    at L 2048), seg_block 1, 2 and 4
     for mega, the 20,000-edge blocked prefix of the paper stream for the
     per-edge kernel and its 200,000-edge generated prefix for the wave
     kernels. Returns {kernel: (max_abs_err, timings at the prefix)}."""
@@ -513,17 +567,21 @@ def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
         MEGA_SEG_BLOCK, kernel_inputs, mega_inputs, resolve_stream_schedule, substream_match,
         waves_inputs,
     )
-    from repro_torch.testing.cases import ZOO, rmat_case
+    from repro_torch.testing.cases import WINDOW, ZOO, rmat_case
 
     cases = {f"zoo_{name}": _on_card(fn()) for name, fn in ZOO.items()}
+    cases.update(_window_cases())
     for L, eps in ((8, 0.1), (13, 0.1), (64, 0.1), (300, 0.01)):
         cases[f"rmat12_L{L}"] = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
     cases["rmat10_L2048"] = _on_card(rmat_case(10, edge_factor=4, L=2048, eps=0.002, pad=5))
-    for L, eps in ((64, 0.1), (300, 0.01)):  # carried state: the second half, seeded
-        stream, cfg, _ = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps))
+    carried = [(f"rmat12_L{L}", rmat_case(12, edge_factor=4, L=L, eps=eps))
+               for L, eps in ((64, 0.1), (300, 0.01))]
+    carried.append(("window_hub_L2048", WINDOW["hub"](2048)))
+    for label, case in carried:  # carried state: the second half, seeded
+        stream, cfg, _ = _on_card(case)
         h = stream.num_edges // 2
         mb0 = substream_match(_head(stream, 0, h), cfg, packed=False).mb
-        cases[f"rmat12_L{L}_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
+        cases[f"{label}_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
     blocked = permute_stream(paper, lexicographic_order(paper, K))
     edge_prefix = "paper_blocked_prefix"
     wave_prefix = "paper_generated_prefix"
@@ -822,7 +880,7 @@ def main():
     rows = [{
         "name": kernel.NAME,
         "route": "cuda",
-        "source": source + "substream_match_packed.cu",
+        "source": source + "substream_match_edges.cu",
         "replaces": "src/repro/kernels/substream_match/kernel.py:117",
         "launches": main["launches"],
         "max_abs_err": max_err,
@@ -855,7 +913,7 @@ def main():
         err, t = unpacked_checks[name]
         rows.append({
             "name": name, "route": "cuda",
-            "source": source + ("substream_match_unpacked.cu" if name == kernel.UNPACKED_NAME
+            "source": source + ("substream_match_edges.cu" if name == kernel.UNPACKED_NAME
                                 else "substream_match_waves.cu"),
             "replaces": f"src/repro/kernels/substream_match/kernel.py:{line}",
             "launches": path["launches"], "max_abs_err": err, "ms": path["ms"],

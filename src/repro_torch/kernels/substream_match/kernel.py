@@ -7,9 +7,8 @@ substream ``8k + j``) or unpacked int8 (byte ``l`` = substream ``l``, set
 when non-zero).
 
 * :func:`substream_match_packed`, the per-edge processor ``_kernel_packed``
-  (``:117``), launches ``csrc/substream_match_packed.cu``;
-* :func:`substream_match_unpacked`, the per-edge processor ``_kernel``
-  (``:74``), launches ``csrc/substream_match_unpacked.cu``;
+  (``:117``), and :func:`substream_match_unpacked`, the per-edge processor
+  ``_kernel`` (``:74``), launch ``csrc/substream_match_edges.cu``;
 * :func:`substream_match_mega`, the tile megakernel
   ``_kernel_waves_mega_packed`` (``:519``) or, with ``packed=False``,
   ``_kernel_waves_mega`` (``:451``), and :func:`substream_match_waves`,
@@ -32,10 +31,22 @@ from repro_torch.kernels import build
 from repro_torch.kernels.substream_match import ref
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+#: the two per-edge kernels share one source (and one library)
 NAME = "substream_match_packed"
-SOURCE = _CSRC / "substream_match_packed.cu"
 UNPACKED_NAME = "substream_match_unpacked"
-UNPACKED_SOURCE = _CSRC / "substream_match_unpacked.cu"
+EDGES_LIBRARY = "substream_match_edges"
+EDGES_SOURCE = _CSRC / "substream_match_edges.cu"
+#: The per-edge kernels' schedule, compile-time constants of ``EDGES_SOURCE``:
+#: a walker warp runs the stream in batches of ``EDGE_BATCH`` edges (one per
+#: lane), loads the bit-block rows ``EDGE_PREFETCH`` batch ahead and forwards
+#: the post-values of the window (the previous batch and the earlier lanes),
+#: while six helper warps prepare the next batch; each CTA owns
+#: ``EDGE_CHUNK_BITS`` substreams (one 64-bit word per vertex); the stream is
+#: staged in shared memory ``EDGE_STAGE_EDGES`` edges at a time.
+EDGE_BATCH = 32
+EDGE_PREFETCH = 1
+EDGE_CHUNK_BITS = 64
+EDGE_STAGE_EDGES = 1024
 #: the four wave kernels share one source (and one library)
 MEGA_NAME = "substream_match_mega"
 WAVES_NAME = "substream_match_waves"
@@ -51,12 +62,12 @@ MAX_UNPACKED_WIDTH = 2048
 #: is the sacrificial row every padding slot points at; the band is 8
 #: rows to keep the row count a multiple of 8.
 SACRIFICIAL_ROWS = 8
-_EDGE_SOURCES = {NAME: SOURCE, UNPACKED_NAME: UNPACKED_SOURCE}
 
 
 def _launcher(name: str = NAME):
-    fn = getattr(build.load_library(name, _EDGE_SOURCES[name]), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn = getattr(build.load_library(EDGES_LIBRARY, EDGES_SOURCE), name)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -116,17 +127,28 @@ def _check_width(width: int, packed: bool):
         )
 
 
+def edge_chunks(width: int, packed: bool) -> int:
+    """CTAs of a per-edge kernel: one per ``EDGE_CHUNK_BITS`` substreams."""
+    nbits = 8 * width if packed else width
+    return max(1, -(-nbits // EDGE_CHUNK_BITS))
+
+
 def _launch_edges(name, edges, weights, thresholds, mb):
     """Launch one of the per-edge kernels on the current stream over the
-    bit block ``mb`` (updated in place); returns assigned [m]."""
+    bit block ``mb`` (updated in place; its rows may be wider than the
+    thresholds' ``width``); returns assigned [m]. With more than one column
+    chunk the CTAs combine ``assigned`` by atomicMax over -1."""
     launch = _launcher(name)
     m = edges.shape[0]
+    width = thresholds.shape[1]
     assigned = torch.empty((m,), dtype=torch.int32, device=edges.device)
+    if edge_chunks(width, name == NAME) > 1:
+        assigned.fill_(-1)
     with torch.cuda.device(edges.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             edges.data_ptr(), weights.data_ptr(), thresholds.data_ptr(),
-            mb.data_ptr(), assigned.data_ptr(), m, mb.shape[1], stream,
+            mb.data_ptr(), assigned.data_ptr(), m, width, mb.shape[1], stream,
         )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -166,12 +188,13 @@ def substream_match_packed(
     width = thresholds.shape[1]
     if width > MAX_WIDTH:
         raise ValueError(f"row width {width} words > {MAX_WIDTH} (L > {8 * MAX_WIDTH})")
-    mb = (
-        torch.zeros((n_pad, width), dtype=torch.uint8, device=edges.device)
-        if mb_init is None
-        else mb_init.clone()
-    )
-    return _launch_edges(NAME, edges, weights, thresholds, mb), mb
+    # the kernel moves whole 64-bit words: rows padded to 8 bytes, the pad kept at zero
+    pitch = -(-width // 8) * 8
+    mb = torch.zeros((n_pad, pitch), dtype=torch.uint8, device=edges.device)
+    if mb_init is not None:
+        mb[:, :width] = mb_init
+    assigned = _launch_edges(NAME, edges, weights, thresholds, mb)
+    return assigned, mb if pitch == width else mb[:, :width].contiguous()
 
 
 def _unpacked_block(rows: int, width: int, mb_init, device) -> torch.Tensor:

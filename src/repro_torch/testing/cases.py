@@ -4,7 +4,10 @@ The nine zoo graphs are those of the JAX package's cross-engine
 differential harness (``tests/test_engine_differential.py``): empty
 stream, single edge, self-loops, duplicate edges, star/hub, bipartite,
 L % 8 != 0, n not a multiple of 8, and a dense graph with weight ties.
-A case holds host arrays only, so the same inputs can be handed to any
+``WINDOW`` adds streams aimed at the per-edge kernels' batches of 32 edges
+and their window (the previous batch and the earlier lanes): a hub, pairs
+that come back 31 to 65 edges later, self-loops inside a batch, and
+streams of 0, 1, 31, 32 and 33 edges. A case holds host arrays only, so the same inputs can be handed to any
 implementation: ``EdgeStream.from_numpy(c.src, c.dst, c.w, n_pad=c.m_pad)``.
 """
 from __future__ import annotations
@@ -122,3 +125,60 @@ def rmat_case(scale: int, edge_factor: int = 8, L: int = 16, eps: float = 0.1,
     src, dst = kronecker_graph(scale, edge_factor=edge_factor, seed=seed)
     w = uniform_weights(src.shape[0], L, eps, seed=seed)
     return Case(1 << scale, src, dst, w, L, eps, pad)
+
+
+def window_eps(L: int) -> float:
+    """An eps that keeps the top weight (1+eps)^(L-1) moderate at ``L``."""
+    return 0.1 if L <= 65 else (0.01 if L <= 300 else 0.002)
+
+
+def _window_case(n, src, dst, L, seed):
+    src, dst = np.asarray(src, np.int32), np.asarray(dst, np.int32)
+    eps = window_eps(L)
+    return Case(n, src, dst, uniform_weights(src.shape[0], L, eps, seed=seed), L, eps, 0)
+
+
+def _window_hub(L=64):
+    # vertex 0 on every other edge, as u and as v in turn; the rest random
+    rng = np.random.default_rng(21)
+    n, m = 96, 300
+    a, b = rng.integers(1, n, m), rng.integers(1, n, m)
+    i = np.arange(m)
+    src = np.where(i % 4 == 0, 0, a)
+    dst = np.where(i % 4 == 2, 0, b)
+    return _window_case(n, src, dst, L, seed=21)
+
+
+def _window_repeats(distance, L=64):
+    # the pair of edge i comes back at i + distance for every 5th i, swapped every other time
+    rng = np.random.default_rng(distance)
+    n, m = 48, 200
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    for k, i in enumerate(range(0, m - distance, 5)):
+        a, b = (src[i], dst[i]) if k % 2 else (dst[i], src[i])
+        src[i + distance], dst[i + distance] = a, b
+    return _window_case(n, src, dst, L, seed=distance)
+
+
+def _window_self_loops(L=64):
+    # self-loops at the batch bounds and inside batches, on vertices their neighbours touch
+    rng = np.random.default_rng(5)
+    n, m = 40, 160
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    for i in (3, 17, 31, 32, 33, 50, 63, 64, 100, 101):
+        src[i] = dst[i] = src[i - 1]
+    return _window_case(n, src, dst, L, seed=5)
+
+
+def _window_short(m, L=64):
+    # few vertices, so the edges of a short stream conflict
+    rng = np.random.default_rng(m)
+    return _window_case(12, rng.integers(0, 12, m), rng.integers(0, 12, m), L, seed=m)
+
+
+WINDOW = {
+    "hub": _window_hub,
+    **{f"repeat_d{d}": (lambda L=64, d=d: _window_repeats(d, L)) for d in (31, 32, 33, 63, 64, 65)},
+    "self_loops_mid": _window_self_loops,
+    **{f"m{m}": (lambda L=64, m=m: _window_short(m, L)) for m in (0, 1, 31, 32, 33)},
+}

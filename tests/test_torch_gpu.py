@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels (packed and unpacked
-layouts) against their plain versions, with and without carried bits, and
-the main path and the epoch executor on the card against the same calls on
+layouts) against their plain versions, with and without carried bits, the
+per-edge kernels on streams aimed at their batch window too, and the main
+path and the epoch executor on the card against the same calls on
 the CPU. They skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -22,7 +23,7 @@ from repro_torch.kernels.substream_match.ops import (
     substream_match,
     waves_inputs,
 )
-from repro_torch.testing.cases import ZOO, rmat_case
+from repro_torch.testing.cases import WINDOW, ZOO, rmat_case
 
 pytestmark = pytest.mark.gpu
 
@@ -82,15 +83,15 @@ def test_wave_kernels_match_plain_versions(cuda, case, schedule, seg_block):
     assert torch.equal(mb, want_mb)
 
 
-def _carried(case, device):
-    """The second half of ``case`` on ``device`` and the first half's dense
-    bits (bool [n, L]), from the plain scan."""
+def _carried(case, device, packed=False):
+    """The second half of ``case`` on ``device`` and the first half's bits
+    from the plain scan: dense (bool [n, L]), or packed (uint8 [n, words])."""
     stream, cfg = _on(case, device)
     h = stream.num_edges // 2
     head, tail = (EdgeStream(*(t[sl] for t in (stream.src, stream.dst, stream.weight, stream.valid)))
                   for sl in (slice(0, h), slice(h, None)))
-    mb0 = substream_match(head, cfg, device="cpu", packed=False).mb.to(device)
-    return tail, cfg, mb0
+    res = substream_match(head, cfg, device="cpu", packed=packed)
+    return tail, cfg, (res.mb_packed if packed else res.mb).to(device)
 
 
 UNPACKED_CASES = {**CASES,
@@ -112,6 +113,67 @@ def test_unpacked_kernel_matches_plain_version(cuda, case, carried):
     assert mb.dtype == torch.int8
     assert torch.equal(assigned, want_a)
     assert torch.equal(mb, want_mb)
+
+
+WINDOW_CASES = [f"{name}-L64" for name in sorted(WINDOW)] + [
+    f"{name}-L{L}" for name in ("hub", "repeat_d33", "self_loops_mid") for L in (13, 65, 300, 2048)]
+
+
+def _edge_kernel(packed):
+    if packed:
+        return kernel.NAME, kernel.substream_match_packed, kernel.substream_match_packed_plain
+    return kernel.UNPACKED_NAME, kernel.substream_match_unpacked, kernel.substream_match_unpacked_plain
+
+
+def _held_to_plain(packed, args):
+    name, launch, plain = _edge_kernel(packed)
+    before = build.launches[name]
+    assigned, mb = launch(*args)
+    assert build.launches[name] == before + 1
+    want_a, want_mb = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(assigned, want_a)
+    assert torch.equal(mb, want_mb)
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_edge_kernels_on_window_cases(cuda, case, packed, carried):
+    """Hubs, pairs 31 to 65 edges apart, self-loops inside a batch and
+    m in {0, 1, 31, 32, 33}; L up to 2048 (32 column chunks)."""
+    name, L = case.split("-L")
+    c = WINDOW[name](int(L))
+    stream, cfg, mb0 = _carried(c, cuda, packed) if carried else (*_on(c, cuda), None)
+    _held_to_plain(packed, kernel_inputs(stream, cfg, mb0, packed=packed))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_edge_kernels_take_unaligned_operands(cuda, packed):
+    """Edges and weights that start inside a 16-byte line (views at an
+    offset) are staged word by word at the ends of each chunk."""
+    c = rmat_case(10, edge_factor=4, L=64)
+    edges, w, thr, n_pad, _ = kernel_inputs(*_on(c, cuda), packed=packed)
+    for shift in (1, 2, 3):
+        big_e = torch.zeros((edges.shape[0] + 4, 2), dtype=torch.int32, device=cuda)
+        big_w = torch.zeros(w.shape[0] + 4, device=cuda)
+        big_e[shift // 2 + 1 : shift // 2 + 1 + edges.shape[0]] = edges
+        big_w[shift : shift + w.shape[0]] = w
+        e_view = big_e[shift // 2 + 1 : shift // 2 + 1 + edges.shape[0]]
+        w_view = big_w[shift : shift + w.shape[0]]
+        assert w_view.data_ptr() % 16 and e_view.is_contiguous()
+        _held_to_plain(packed, (e_view, w_view, thr, n_pad, None))
+
+
+def test_packed_kernel_takes_a_row_of_two_words(cuda):
+    """A packed width that is not a multiple of 8 (L = 13 called directly):
+    the wrapper pads the block's rows and returns [n_pad, width]."""
+    c = WINDOW["hub"](13)
+    edges, w, thr, n_pad, _ = kernel_inputs(*_on(c, cuda))
+    thr = thr[:, :2].contiguous()
+    _held_to_plain(True, (edges, w, thr, n_pad, None))
+    mb0 = torch.randint(0, 256, (n_pad, 2), dtype=torch.uint8, device=cuda)
+    _held_to_plain(True, (edges, w, thr, n_pad, mb0))
 
 
 @pytest.mark.parametrize("carried", [False, True])
