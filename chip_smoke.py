@@ -16,7 +16,11 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   checked;
 * the unpacked main path, ``mwm_pipeline(part1="kernel", packed=False)``
   (the int8 block, one byte per substream), and the unpacked wave path on
-  the wave path's schedule, each bit-equal to its packed twin;
+  the wave path's schedule, each bit-equal to its packed twin; the unpacked
+  wave kernels also on streams aimed at their slot ring (a wave of 5,000
+  edges, a star of 3,000 leaves, mixed widths; L 64, 300 and 2048; carried
+  bytes of 5; misaligned operands), held to their plain versions and to
+  the packed mega kernel;
 * the epoch path: ``match_epochs`` (4 epochs, and resumed from the state
   after epoch 2) equal to its one-shot run, on the blocked paper stream
   through the unpacked per-edge kernel, and at scale 16 through the wave
@@ -107,6 +111,24 @@ def window_share(edges):
     return shares
 
 
+def wave_widths(sch):
+    """The schedule's waves by width in slots: the share of the waves and of
+    the scheduled edges in waves of <= 32, <= 128, <= 1024 and > 1024 slots,
+    and the widest wave."""
+    import numpy as np
+
+    slots = np.diff(sch.seg_offsets).astype(np.int64) * sch.width
+    edges = sch.wave_sizes().astype(np.int64)
+    out = {}
+    for label, lo, hi in (("<=32", 0, 32), ("<=128", 33, 128), ("<=1024", 129, 1024),
+                          (">1024", 1025, None)):
+        pick = (slots >= lo) & (slots <= hi if hi else True)
+        out[label] = {"waves": float(pick.mean()) if slots.size else 0.0,
+                      "edges": float(edges[pick].sum() / max(edges.sum(), 1))}
+    out["max_wave_slots"] = int(slots.max()) if slots.size else 0
+    return out
+
+
 def phase_device():
     import torch
 
@@ -138,8 +160,10 @@ def phase_build():
     from repro_torch.kernels.substream_match import kernel
 
     loads = {kernel.EDGES_LIBRARY: kernel._launcher,
-             kernel.WAVES_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_NAME)}
-    sources = {kernel.EDGES_LIBRARY: kernel.EDGES_SOURCE, kernel.WAVES_LIBRARY: kernel.WAVES_SOURCE}
+             kernel.WAVES_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_NAME),
+             kernel.WAVES_UNPACKED_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_UNPACKED_NAME)}
+    sources = {kernel.EDGES_LIBRARY: kernel.EDGES_SOURCE, kernel.WAVES_LIBRARY: kernel.WAVES_SOURCE,
+               kernel.WAVES_UNPACKED_LIBRARY: kernel.WAVES_UNPACKED_SOURCE}
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         for fut in [pool.submit(fn) for fn in loads.values()]:
             fut.result()
@@ -457,6 +481,7 @@ def phase_wave_path(config, stream, cfg):
                         "kernel": kernel_ms / 1e3, "kernel_runs": [t / 1e3 for t in runs],
                         "scatter": scatter_s},
             "ns_per_edge_kernel": kernel_ms * 1e6 / m, "edges_per_s_kernel": m / (kernel_ms / 1e3),
+            "us_per_wave": kernel_ms * 1e3 / sch.num_waves,
             "slots": total, "slot_fill": sch.num_scheduled / total if total else 1.0,
             "segments": int(args[3][-1]),
         }
@@ -465,7 +490,8 @@ def phase_wave_path(config, stream, cfg):
             report[schedule]["seg_block"] = args[6]
         report[schedule]["out"] = {"name": name, "ms": kernel_ms, "bound_ms": bound_ms,
                                    "bound_by": bound_by, "launches": launches[name], "m": m,
-                                   "slot_fill": report[schedule]["slot_fill"]}
+                                   "slot_fill": report[schedule]["slot_fill"],
+                                   "us_per_wave": report[schedule]["us_per_wave"]}
         del args, slots, a_slots, mb
     # the per-edge kernel on the same (generated) order, once
     args = kernel_inputs(stream, cfg)
@@ -490,6 +516,7 @@ def phase_wave_path(config, stream, cfg):
                    "pack_seconds": sch.pack_seconds, "waves": sch.num_waves,
                    "segments": sch.num_segments, "fill": sch.fill,
                    "median_wave": float(np.median(sizes)), "max_wave": int(sizes.max())},
+         wave_widths=wave_widths(sch),
          engines={k: {kk: vv for kk, vv in v.items() if kk != "out"} for k, v in report.items()},
          edges_kernel_same_order={"ms": edges_ms, "ns_per_edge": edges_ms * 1e6 / m,
                                   "window_share": shares},
@@ -551,6 +578,85 @@ def phase_blocked_wave_route(K):
          equal_to_edges_pipeline=True)
 
 
+def _ring_checks(results, max_err, rmat_stream, rmat_cfg):
+    """The unpacked wave kernels on the streams aimed at their slot ring
+    (:data:`repro_torch.testing.cases.WAVE`) at L 64, 300 and 2048, each
+    also as its second half seeded with the first half's bits (set bytes
+    made 5), mega at seg_block 1, 2 and 4: equal to the plain version on
+    the same operands and, scattered to the stream, to the packed mega
+    kernel on the same schedule. Then ids and weights at 4, 8 and 12 bytes
+    past a 16-byte line. Adds to ``results`` and ``max_err``."""
+    import torch
+
+    from repro_torch.graph import waves
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import (
+        mega_inputs, resolve_stream_schedule, substream_match, waves_inputs,
+    )
+    from repro_torch.testing.cases import WAVE
+
+    engines = {kernel.MEGA_UNPACKED_NAME: (kernel.substream_match_mega,
+                                           kernel.substream_match_mega_plain),
+               kernel.WAVES_UNPACKED_NAME: (kernel.substream_match_waves,
+                                            kernel.substream_match_waves_plain)}
+
+    def inputs(name, stream, cfg, sch, sb, mb0):
+        if name == kernel.MEGA_UNPACKED_NAME:
+            return mega_inputs(stream, cfg, sch, sb, mb0, packed=False)
+        return waves_inputs(stream, cfg, sch, mb0, packed=False)
+
+    for case, fn in WAVE.items():
+        for L in (64, 300, 2048):
+            stream, cfg, _ = _on_card(fn(L))
+            h = stream.num_edges // 2
+            head = _head(stream, 0, h)
+            runs = {f"ring_{case}_L{L}": (stream, None, None),
+                    f"ring_{case}_L{L}_mb0": (_head(stream, h, stream.num_edges),
+                                              substream_match(head, cfg, packed=False).mb,
+                                              substream_match(head, cfg).mb_packed)}
+            for label, (st, mb0, mb0_packed) in runs.items():
+                sch = resolve_stream_schedule(st)
+                want = substream_match(st, cfg, schedule="mega", waves=sch, mb0=mb0_packed,
+                                       packed=True)
+                for name, sb in ((kernel.MEGA_UNPACKED_NAME, 1), (kernel.MEGA_UNPACKED_NAME, 2),
+                                 (kernel.MEGA_UNPACKED_NAME, 4), (kernel.WAVES_UNPACKED_NAME, None)):
+                    args, slots = inputs(name, st, cfg, sch, sb, mb0)
+                    if args[-1] is not None:
+                        args = (*args[:-1], args[-1] * 5)
+                    launch, plain = engines[name]
+                    a_k, mb_k = launch(*args, packed=False)
+                    a_p, mb_p = plain(*args, packed=False)
+                    torch.cuda.synchronize()
+                    err = _compare(a_k, mb_k, a_p, mb_p)
+                    same = (torch.equal(waves.scatter_slot_assignments(slots, a_k, st.num_edges),
+                                        want.assigned)
+                            and torch.equal(mb_k[: cfg.n, : cfg.L].ne(0), want.mb))
+                    max_err[name] = max(max_err[name], err)
+                    results[name][label if sb is None else f"{label}_sb{sb}"] = {
+                        "m": st.num_edges, "L": cfg.L, "waves": sch.num_waves,
+                        "max_wave": sch.max_wave_size, "equal": err == 0,
+                        "equal_packed_mega": same}
+    sch = resolve_stream_schedule(rmat_stream)
+    for name in engines:
+        args, _ = inputs(name, rmat_stream, rmat_cfg, sch, 2, None)
+        launch, plain = engines[name]
+        a_p, mb_p = plain(*args, packed=False)
+        for shift in (1, 2, 3):
+            ids, w = args[0], args[1]
+            big_i = torch.zeros(ids.numel() + 4, dtype=torch.int32, device=ids.device)
+            big_w = torch.zeros(w.numel() + 4, device=w.device)
+            big_i[shift : shift + ids.numel()] = ids.reshape(-1)
+            big_w[shift : shift + w.numel()] = w
+            moved = (big_i[shift : shift + ids.numel()].view(ids.shape),
+                     big_w[shift : shift + w.numel()], *args[2:])
+            a_k, mb_k = launch(*moved, packed=False)
+            torch.cuda.synchronize()
+            err = _compare(a_k, mb_k, a_p, mb_p)
+            max_err[name] = max(max_err[name], err)
+            results[name][f"rmat12_L64_misaligned{4 * shift}"] = {
+                "m": rmat_stream.num_edges, "L": rmat_cfg.L, "equal": err == 0}
+
+
 def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
     """The three unpacked kernels and their plain versions on the same
     operands on the card: the zoo, the window cases, RMAT scale 12 at L 8,
@@ -558,7 +664,8 @@ def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
     at L 2048), seg_block 1, 2 and 4
     for mega, the 20,000-edge blocked prefix of the paper stream for the
     per-edge kernel and its 200,000-edge generated prefix for the wave
-    kernels. Returns {kernel: (max_abs_err, timings at the prefix)}."""
+    kernels; the wave kernels also on the ring cases (:func:`_ring_checks`).
+    Returns {kernel: (max_abs_err, timings at the prefix)}."""
     import torch
 
     from repro_torch.core import lexicographic_order, permute_stream
@@ -574,6 +681,7 @@ def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
     for L, eps in ((8, 0.1), (13, 0.1), (64, 0.1), (300, 0.01)):
         cases[f"rmat12_L{L}"] = _on_card(rmat_case(12, edge_factor=4, L=L, eps=eps, pad=5))
     cases["rmat10_L2048"] = _on_card(rmat_case(10, edge_factor=4, L=2048, eps=0.002, pad=5))
+    rmat12_L64 = cases["rmat12_L64"]
     carried = [(f"rmat12_L{L}", rmat_case(12, edge_factor=4, L=L, eps=eps))
                for L, eps in ((64, 0.1), (300, 0.01))]
     carried.append(("window_hub_L2048", WINDOW["hub"](2048)))
@@ -636,10 +744,12 @@ def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
                                "plain_m": stream.num_edges,
                                "bound_ms_at_plain_m": bound(stream.num_edges, n_pad, width,
                                                             packed=False)[0]}
+    _ring_checks(results, max_err, *rmat12_L64[:2])
     for name in names:
         emit("kernel_vs_plain", kernel=name, cases=results[name], max_abs_err=max_err[name],
              **timed[name])
-        bad = [k for k, v in results[name].items() if not v["equal"]]
+        bad = [k for k, v in results[name].items()
+               if not (v["equal"] and v.get("equal_packed_mega", True))]
         if bad:
             raise AssertionError(f"{name} differs from its plain version on {bad}")
     return {name: (max_err[name], timed[name]) for name in names}
@@ -773,10 +883,10 @@ def phase_unpacked_wave_path(config, stream, cfg, sch, packed_mega):
                             "slots": total, "slot_fill": fill}
         out[name] = {"name": name, "m": m, "ms": kernel_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "launches": launches[name], "slot_fill": fill,
-                     "fits_l2": plan.fits_l2}
+                     "fits_l2": plan.fits_l2, "us_per_wave": kernel_ms * 1e3 / sch.num_waves}
         del args, slots, a_slots, mb, res
     emit("unpacked_wave_path", order="generated", scale=config.scale, L=cfg.L, n=cfg.n, m=m,
-         waves=sch.num_waves, bit_block_bytes=(plan.n_pad + kernel.SACRIFICIAL_ROWS) * plan.width,
+         waves=sch.num_waves, wave_widths=wave_widths(sch), bit_block_bytes=(plan.n_pad + kernel.SACRIFICIAL_ROWS) * plan.width,
          fits_l2=plan.fits_l2, engines=report, bit_equal_to_packed_mega=True)
     return out
 
@@ -904,6 +1014,7 @@ def main():
             "launches": w["launches"], "max_abs_err": err, "ms": w["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
             "library_ms": None, "m": w["m"], "slot_fill": w["slot_fill"],
+            "us_per_wave": w["us_per_wave"],
             "plain_m": WAVE_PLAIN_PREFIX, "ms_at_plain_m": t["ms_at_plain_m"],
             "bound_ms_at_plain_m": t["bound_ms_at_plain_m"], "matched_plain": err == 0,
         })
@@ -914,12 +1025,12 @@ def main():
         rows.append({
             "name": name, "route": "cuda",
             "source": source + ("substream_match_edges.cu" if name == kernel.UNPACKED_NAME
-                                else "substream_match_waves.cu"),
+                                else "substream_match_waves_unpacked.cu"),
             "replaces": f"src/repro/kernels/substream_match/kernel.py:{line}",
             "launches": path["launches"], "max_abs_err": err, "ms": path["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": None, "m": path["m"], "fits_l2": path["fits_l2"],
-            **({"slot_fill": path["slot_fill"]} if "slot_fill" in path else {}),
+            **({k: path[k] for k in ("slot_fill", "us_per_wave") if k in path}),
             "plain_m": t["plain_m"], "ms_at_plain_m": t["ms_at_plain_m"],
             "bound_ms_at_plain_m": t["bound_ms_at_plain_m"], "matched_plain": err == 0,
         })

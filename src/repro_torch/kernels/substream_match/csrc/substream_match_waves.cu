@@ -1,19 +1,15 @@
-// Wave-parallel substream matchers (Listing 1 Part 1), on packed bit planes or on the
-// unpacked int8 block.
+// Wave-parallel substream matchers (Listing 1 Part 1) on packed bit planes.
 //
-// Four launchers share one kernel body:
+// Two launchers share one kernel body:
 //   substream_match_mega            replaces the TPU tile megakernel
 //                                   `_kernel_waves_mega_packed` (src/repro/kernels/
 //                                   substream_match/kernel.py:519, wrapper
 //                                   `substream_match_pallas_mega`, with `_prefix_te_table`
 //                                   :421 and `_high_bit_table` :440);
 //   substream_match_waves           replaces the TPU segment kernel `_kernel_waves_packed`
-//                                   (kernel.py:243, wrapper `substream_match_pallas_waves`);
-//   substream_match_mega_unpacked   replaces `_kernel_waves_mega` (kernel.py:451, the mega
-//                                   wrapper with packed=False);
-//   substream_match_waves_unpacked  replaces `_kernel_waves` (kernel.py:168, the waves
-//                                   wrapper with packed=False).
-// All walk a fill-packed wave schedule (repro_torch/graph/waves.py): wave k owns the
+//                                   (kernel.py:243, wrapper `substream_match_pallas_waves`).
+// (The unpacked twins are in substream_match_waves_unpacked.cu.)
+// Both walk a fill-packed wave schedule (repro_torch/graph/waves.py): wave k owns the
 // slots [seg_offsets[k] * seg, seg_offsets[k + 1] * seg), and the real slots of one wave
 // are vertex-disjoint. For every slot (u, v, w):
 //   te       = the eligibility of every substream, none when u == v (self-loops and
@@ -21,16 +17,13 @@
 //   add      = te & ~(mb[u] | mb[v])
 //   mb[u] |= add; mb[v] |= add
 //   assigned = the highest substream of add, or -1.
-// Layouts. Packed: a row is `width` uint8 words, bit j of word k = substream 8k+j.
-// Unpacked: a row is `width` int8 bytes, byte l = substream l, set when non-zero.
+// Layout: a row is `width` uint8 words, bit j of word k = substream 8k+j.
 // Operand contracts, as the TPU wrappers':
 //   mega  : ids = uv [2 * total], per tile of `bslots` slots all u's then all v's; thr =
-//           the flat sorted vector (+inf pads) of 8 * width (packed) or width (unpacked)
-//           entries. Since thresholds are sorted, te is the prefix of the
+//           the flat sorted vector (+inf pads) of 8 * width entries. Since thresholds are sorted, te is the prefix of the
 //           passing-threshold count (binary search, then a mask).
 //   waves : ids = edges [total, 2]; thr = bit planes [8, width], thr[j * width + k] =
-//           substream 8k+j (packed), or one lane each [1, width] (unpacked); te is
-//           assembled threshold by threshold.
+//           substream 8k+j; te is assembled threshold by threshold.
 // Padding (and, for mega, self-loop) slots hold u = v = n_pad, the sacrificial row.
 //
 // Design. Greedy matching is confluent over vertex-disjoint edges, so finishing wave k
@@ -38,14 +31,13 @@
 // can run at once. One persistent CTA of 1024 threads walks the waves in order; its
 // threads stride over the wave's slots, one slot per thread, gathering the two rows from
 // the bit block in global memory as 64-bit chunks and writing back only chunks where
-// add != 0. Chunk c holds substreams 64c..64c+63 (packed, one bit each) or 8c..8c+7
-// (unpacked, one byte each); the highest substream of a chunk is 64c + 63 - clz(add) or
-// 8c + ((63 - clz(add)) >> 3). __syncthreads() between waves makes the writes visible to
+// add != 0. Chunk c holds substreams 64c..64c+63, one bit each; the highest substream of a
+// chunk is 64c + 63 - clz(add). __syncthreads() between waves makes the writes visible to
 // the block. A slot with u == v never writes, so the sacrificial row is never raced.
 //
 // Bound on the H100. The bytes the function must move are m*16 B (edge pair, weight,
-// assigned) plus the bit block: about 0.2 ms at 3.35 TB/s at the paper's size (8 MiB
-// packed, resident in the 50 MB L2; 64 MiB unpacked, which is not). What limits this
+// assigned) plus the bit block: about 0.2 ms at 3.35 TB/s at the paper's size (8 MiB,
+// resident in the 50 MB L2). What limits this
 // design is one round trip to the rows plus one block barrier per wave, on one SM:
 // ~1-3 us a wave. Grid-wide barriers across SMs, a cp.async/TMA ring for the slot
 // stream and a warp per slot at large L are later work.
@@ -57,14 +49,8 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kMaxBits = 2048;  // substreams: L <= 2048
-constexpr uint64_t kLowBytes = 0x0101010101010101ull;
 
-// 0x01 in every byte of x that is non-zero, 0x00 elsewhere.
-__device__ __forceinline__ uint64_t nonzero_bytes(uint64_t x) {
-  return ((((x & 0x7f7f7f7f7f7f7f7full) + 0x7f7f7f7f7f7f7f7full) | x) >> 7) & kLowBytes;
-}
-
-template <bool kMega, bool kPacked>
+template <bool kMega>
 __global__ void __launch_bounds__(kThreads, 1) substream_match_waves_kernel(
     const int32_t* __restrict__ seg_offsets,  // [num_waves + 1]
     int num_waves, int seg, int bslots,
@@ -75,7 +61,7 @@ __global__ void __launch_bounds__(kThreads, 1) substream_match_waves_kernel(
     int32_t* __restrict__ assigned,           // [total], -1 filled by the caller
     int width) {
   __shared__ float s_thr[kMaxBits];
-  const int nbits = kPacked ? 8 * width : width;
+  const int nbits = 8 * width;
   for (int i = threadIdx.x; i < nbits; i += kThreads) s_thr[i] = thr[i];
   __syncthreads();
   const int chunks = width / 8;
@@ -110,13 +96,10 @@ __global__ void __launch_bounds__(kThreads, 1) substream_match_waves_kernel(
         uint64_t* rv = reinterpret_cast<uint64_t*>(mb + static_cast<size_t>(v) * width);
         for (int c = 0; c < chunks; ++c) {
           uint64_t te = 0;
-          if (kMega && kPacked) {
+          if (kMega) {
             const int nb = min(max(cnt - 64 * c, 0), 64);
             te = nb == 64 ? ~0ull : ((1ull << nb) - 1ull);
-          } else if (kMega) {
-            const int nb = min(max(cnt - 8 * c, 0), 8);
-            te = nb == 8 ? kLowBytes : (kLowBytes & ((1ull << (8 * nb)) - 1ull));
-          } else if (kPacked) {
+          } else {
 #pragma unroll
             for (int byte = 0; byte < 8; ++byte) {
               const int col = 8 * c + byte;
@@ -124,21 +107,16 @@ __global__ void __launch_bounds__(kThreads, 1) substream_match_waves_kernel(
               for (int j = 0; j < 8; ++j)
                 te |= static_cast<uint64_t>(w >= s_thr[j * width + col]) << (8 * byte + j);
             }
-          } else {
-#pragma unroll
-            for (int byte = 0; byte < 8; ++byte)
-              te |= static_cast<uint64_t>(w >= s_thr[8 * c + byte]) << (8 * byte);
           }
           if (te == 0) continue;
           const uint64_t a = ru[c];
           const uint64_t b = rv[c];
-          const uint64_t add = kPacked ? te & ~(a | b)
-                                       : te & ~(nonzero_bytes(a) | nonzero_bytes(b));
+          const uint64_t add = te & ~(a | b);
           if (add) {
             ru[c] = a | add;
             rv[c] = b | add;
             const int top = 63 - __clzll(static_cast<long long>(add));
-            best = kPacked ? 64 * c + top : 8 * c + (top >> 3);
+            best = 64 * c + top;
           }
         }
       }
@@ -149,18 +127,16 @@ __global__ void __launch_bounds__(kThreads, 1) substream_match_waves_kernel(
 }
 
 // Each launches one block of 1024 threads on `stream` and returns cudaGetLastError() (0 on
-// success). `width` is the row's bytes: a multiple of 8 up to 256 (packed) or of 16 up to
-// 2048 (unpacked), L <= 2048 either way; any other width is refused with
-// cudaErrorInvalidValue.
+// success). `width` is the row's bytes: a multiple of 8 up to 256 (L <= 2048); any other
+// width is refused with cudaErrorInvalidValue.
 
-template <bool kMega, bool kPacked>
+template <bool kMega>
 int launch_waves(const void* seg_offsets, int num_waves, int seg, int bslots, const void* ids,
                  const void* weights, const void* thr, void* mb, void* assigned, int width,
                  void* stream) {
-  const bool ok_width = kPacked ? width % 8 == 0 && 8 * width <= kMaxBits
-                                : width % 16 == 0 && width <= kMaxBits;
+  const bool ok_width = width % 8 == 0 && 8 * width <= kMaxBits;
   if (!ok_width || bslots <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  substream_match_waves_kernel<kMega, kPacked>
+  substream_match_waves_kernel<kMega>
       <<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(seg_offsets), num_waves, seg, bslots,
           static_cast<const int32_t*>(ids), static_cast<const float*>(weights),
@@ -175,29 +151,13 @@ extern "C" int substream_match_mega(const void* seg_offsets, int num_waves, int 
                                     int bslots, const void* uv, const void* weights,
                                     const void* thr, void* mb, void* assigned, int width,
                                     void* stream) {
-  return launch_waves<true, true>(seg_offsets, num_waves, seg, bslots, uv, weights, thr, mb,
+  return launch_waves<true>(seg_offsets, num_waves, seg, bslots, uv, weights, thr, mb,
                                   assigned, width, stream);
 }
 
 extern "C" int substream_match_waves(const void* seg_offsets, int num_waves, int seg,
                                      const void* edges, const void* weights, const void* thr,
                                      void* mb, void* assigned, int width, void* stream) {
-  return launch_waves<false, true>(seg_offsets, num_waves, seg, 1, edges, weights, thr, mb,
+  return launch_waves<false>(seg_offsets, num_waves, seg, 1, edges, weights, thr, mb,
                                    assigned, width, stream);
-}
-
-extern "C" int substream_match_mega_unpacked(const void* seg_offsets, int num_waves, int seg,
-                                             int bslots, const void* uv, const void* weights,
-                                             const void* thr, void* mb, void* assigned,
-                                             int width, void* stream) {
-  return launch_waves<true, false>(seg_offsets, num_waves, seg, bslots, uv, weights, thr, mb,
-                                   assigned, width, stream);
-}
-
-extern "C" int substream_match_waves_unpacked(const void* seg_offsets, int num_waves, int seg,
-                                              const void* edges, const void* weights,
-                                              const void* thr, void* mb, void* assigned,
-                                              int width, void* stream) {
-  return launch_waves<false, false>(seg_offsets, num_waves, seg, 1, edges, weights, thr, mb,
-                                    assigned, width, stream);
 }

@@ -10,10 +10,11 @@ when non-zero).
   (``:117``), and :func:`substream_match_unpacked`, the per-edge processor
   ``_kernel`` (``:74``), launch ``csrc/substream_match_edges.cu``;
 * :func:`substream_match_mega`, the tile megakernel
-  ``_kernel_waves_mega_packed`` (``:519``) or, with ``packed=False``,
-  ``_kernel_waves_mega`` (``:451``), and :func:`substream_match_waves`,
-  the segment kernel ``_kernel_waves_packed`` (``:243``) or ``_kernel_waves``
-  (``:168``), launch ``csrc/substream_match_waves.cu``.
+  ``_kernel_waves_mega_packed`` (``:519``), and :func:`substream_match_waves`,
+  the segment kernel ``_kernel_waves_packed`` (``:243``), launch
+  ``csrc/substream_match_waves.cu``; with ``packed=False`` they replace
+  ``_kernel_waves_mega`` (``:451``) and ``_kernel_waves`` (``:168``) and
+  launch ``csrc/substream_match_waves_unpacked.cu``.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its ``*_plain`` version, the same function in plain PyTorch. There is no
@@ -47,13 +48,32 @@ EDGE_BATCH = 32
 EDGE_PREFETCH = 1
 EDGE_CHUNK_BITS = 64
 EDGE_STAGE_EDGES = 1024
-#: the four wave kernels share one source (and one library)
+#: the two packed wave kernels share one source (and one library), the two
+#: unpacked ones another
 MEGA_NAME = "substream_match_mega"
 WAVES_NAME = "substream_match_waves"
 MEGA_UNPACKED_NAME = "substream_match_mega_unpacked"
 WAVES_UNPACKED_NAME = "substream_match_waves_unpacked"
 WAVES_LIBRARY = "substream_match_waves"
 WAVES_SOURCE = _CSRC / "substream_match_waves.cu"
+WAVES_UNPACKED_LIBRARY = "substream_match_waves_unpacked"
+WAVES_UNPACKED_SOURCE = _CSRC / "substream_match_waves_unpacked.cu"
+#: The unpacked wave kernels' schedule, compile-time constants of
+#: ``WAVES_UNPACKED_SOURCE``: one CTA of ``WAVE_THREADS`` threads walks the
+#: waves, a thread to a (slot, lane), a slot taking :func:`wave_lanes` lanes
+#: of ``WAVE_CHUNK_BITS`` substreams each (one word of the packed working
+#: copy); the last ``WAVE_STAGERS`` threads (a warp a ring) copy the ids and
+#: passing counts of wave k + ``WAVE_AHEAD`` into rings of
+#: ``WAVE_RING_SLOTS`` slots in shared memory during wave k, having planned
+#: that range during wave k - 1, and the segment offsets
+#: ``WAVE_OFFSET_AHEAD`` waves ahead into a ring of ``WAVE_OFFSET_RING``.
+WAVE_THREADS = 512
+WAVE_CHUNK_BITS = 64
+WAVE_RING_SLOTS = 4096
+WAVE_AHEAD = 3
+WAVE_OFFSET_AHEAD = 8
+WAVE_OFFSET_RING = 16
+WAVE_STAGERS = 64
 #: widest row the kernels take, in uint8 words (L <= 2048)
 MAX_WIDTH = 256
 #: widest unpacked row the kernels take, in int8 bytes (L <= 2048)
@@ -243,10 +263,24 @@ def substream_match_unpacked(
 # The wave kernels: a fill-packed wave schedule, one wave after another.
 
 
+def wave_lanes(width: int) -> int:
+    """Lanes per slot of the unpacked wave kernels for rows of ``width``
+    bytes: the next power of two >= its ``WAVE_CHUNK_BITS``-substream words."""
+    words = max(1, -(-width // WAVE_CHUNK_BITS))
+    return 1 << (words - 1).bit_length()
+
+
 def _waves_launcher(name: str):
-    fn = getattr(build.load_library(WAVES_LIBRARY, WAVES_SOURCE), name)
     ints = [ctypes.c_int] * (3 if name in (MEGA_NAME, MEGA_UNPACKED_NAME) else 2)  # + bslots
-    fn.argtypes = [ctypes.c_void_p, *ints, *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_void_p]
+    if name in (MEGA_UNPACKED_NAME, WAVES_UNPACKED_NAME):
+        fn = getattr(build.load_library(WAVES_UNPACKED_LIBRARY, WAVES_UNPACKED_SOURCE), name)
+        # ids, weights, thr, mb, work, counts, assigned; total, rows, width, stream
+        fn.argtypes = [ctypes.c_void_p, *ints, *[ctypes.c_void_p] * 7, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = getattr(build.load_library(WAVES_LIBRARY, WAVES_SOURCE), name)
+        fn.argtypes = [ctypes.c_void_p, *ints, *[ctypes.c_void_p] * 5, ctypes.c_int,
+                       ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -397,16 +431,26 @@ def substream_match_mega(
 def _launch_waves(name, seg_offsets, seg, extra, ids, weights, thresholds, n_pad, width,
                   mb_init, packed):
     """Launch one of the wave kernels (``extra``: mega's tile size) on the
-    current stream; returns (assigned [total], mb [n_pad, width])."""
+    current stream; returns (assigned [total], mb [n_pad, width]). The
+    unpacked kernels take scratch: their packed working copy of the block,
+    one int64 word per 64 substreams of a row, and an int32 passing count
+    per slot."""
     _check_width(width, packed)
     launch = _waves_launcher(name)
     mb = _bit_block(n_pad, width, mb_init, ids.device, packed)
-    assigned = torch.full((weights.shape[0],), -1, dtype=torch.int32, device=ids.device)
+    total = weights.shape[0]
+    assigned = torch.full((total,), -1, dtype=torch.int32, device=ids.device)
+    block, sizes = [mb.data_ptr()], []
+    if not packed:
+        work = torch.empty((mb.shape[0], -(-width // WAVE_CHUNK_BITS)), dtype=torch.int64,
+                           device=ids.device)
+        counts = torch.empty((total,), dtype=torch.int32, device=ids.device)
+        block, sizes = [mb.data_ptr(), work.data_ptr(), counts.data_ptr()], [total, mb.shape[0]]
     with torch.cuda.device(ids.device):
         err = launch(
             seg_offsets.data_ptr(), seg_offsets.shape[0] - 1, seg, *extra,
-            ids.data_ptr(), weights.data_ptr(), thresholds.data_ptr(), mb.data_ptr(),
-            assigned.data_ptr(), width, torch.cuda.current_stream().cuda_stream,
+            ids.data_ptr(), weights.data_ptr(), thresholds.data_ptr(), *block,
+            assigned.data_ptr(), *sizes, width, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -96,6 +96,8 @@ def device_plan(
 #: bytes of device memory per slot of a wave schedule's slot stream: the
 #: endpoint pair, the weight and the per-slot assigned index
 SLOT_BYTES = 2 * 4 + 4 + 4
+#: and, for the unpacked kernels, the int32 passing count they keep per slot
+UNPACKED_SLOT_SCRATCH = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,11 +135,15 @@ def _slot_plan(n, L, seg, num_waves, num_segments, fill, free_bytes, packed,
         **dataclasses.asdict(base), seg=seg, num_waves=num_waves,
         num_segments=num_segments, fill=fill, **mega,
     )
-    need = plan.rows * plan.width + plan.slots * SLOT_BYTES
+    slot_bytes = SLOT_BYTES if packed else SLOT_BYTES + UNPACKED_SLOT_SCRATCH
+    block = plan.rows * plan.width
+    if not packed:  # the unpacked kernels' packed working copy of the block
+        block += plan.rows * 8 * -(-plan.width // 64)
+    need = block + plan.slots * slot_bytes
     if free_bytes is not None and need > free_bytes:
         raise ValueError(
-            f"bit block ({plan.rows * plan.width / 2**20:.1f} MiB) + slot stream "
-            f"({plan.slots} slots, {plan.slots * SLOT_BYTES / 2**20:.1f} MiB) > "
+            f"bit block ({block / 2**20:.1f} MiB) + slot stream "
+            f"({plan.slots} slots, {plan.slots * slot_bytes / 2**20:.1f} MiB) > "
             f"{free_bytes / 2**20:.1f} MiB free on the card; run the stream in "
             f"shorter pieces, each carrying the last one's bits (substream_match(mb0=...))"
         )

@@ -7,7 +7,11 @@ L % 8 != 0, n not a multiple of 8, and a dense graph with weight ties.
 ``WINDOW`` adds streams aimed at the per-edge kernels' batches of 32 edges
 and their window (the previous batch and the earlier lanes): a hub, pairs
 that come back 31 to 65 edges later, self-loops inside a batch, and
-streams of 0, 1, 31, 32 and 33 edges. A case holds host arrays only, so the same inputs can be handed to any
+streams of 0, 1, 31, 32 and 33 edges. ``WAVE`` adds streams aimed at the
+unpacked wave kernels' slot ring and passes: two waves of 5,000 disjoint
+edges (wider than the ring and than one pass of 1,024 slots), a star of
+3,000 leaves (3,000 one-edge waves), and waves of mixed widths on both
+sides of the ring's capacity. A case holds host arrays only, so the same inputs can be handed to any
 implementation: ``EdgeStream.from_numpy(c.src, c.dst, c.w, n_pad=c.m_pad)``.
 """
 from __future__ import annotations
@@ -182,3 +186,54 @@ WINDOW = {
     "self_loops_mid": _window_self_loops,
     **{f"m{m}": (lambda L=64, m=m: _window_short(m, L)) for m in (0, 1, 31, 32, 33)},
 }
+
+
+def _rounds(widths, L, seed):
+    # round b is a matching of widths[b] edges on the vertices 0..2*widths[b], shifted by one
+    # every other round, so it conflicts with the round before: one wave a round, mostly
+    src, dst = [], []
+    for b, w in enumerate(widths):
+        x = 2 * np.arange(w) + b % 2
+        src.append(x)
+        dst.append(x + 1)
+    n = 2 * max(widths) + 2
+    return _window_case(n, np.concatenate(src), np.concatenate(dst), L, seed)
+
+
+def _wave_wide(L=64):
+    # two waves of 5,000 disjoint edges, then 60 edges on a few vertices (short waves)
+    rng = np.random.default_rng(31)
+    c = _rounds([5000, 5000], L, seed=31)
+    src = np.concatenate([c.src, rng.integers(0, 40, 60).astype(np.int32)])
+    dst = np.concatenate([c.dst, rng.integers(0, 40, 60).astype(np.int32)])
+    return _window_case(c.n, src, dst, L, seed=31)
+
+
+def _wave_star(L=64, leaves=3000):
+    # hub 0 on every edge, as u and as v in turn: one wave per edge
+    i = np.arange(1, leaves + 1)
+    src = np.where(i % 2 == 0, 0, i)
+    dst = np.where(i % 2 == 0, i, 0)
+    return _window_case(leaves + 1, src, dst, L, seed=37)
+
+
+def _wave_mixed(L=64):
+    # one wave per round: every edge of a round takes one endpoint of the round before and one
+    # new vertex, so widths may double from round to round; they cross the ring's capacity
+    # (4,096 slots at L <= 64) both ways
+    widths = [64, 128, 256, 512, 1024, 2048, 4096, 5000, 30, 60, 120, 240, 480, 960, 1920,
+              3840, 7, 3]
+    rng = np.random.default_rng(41)
+    src, dst, prev, n = [], [], np.zeros(0, np.int64), 0
+    for w in widths:
+        old = prev[rng.permutation(prev.size)[:w]] if prev.size else np.arange(n, n + w) + w
+        new = np.arange(n, n + w)
+        n += w if prev.size else 2 * w
+        swap = np.arange(w) % 2 == 1
+        src.append(np.where(swap, new, old))
+        dst.append(np.where(swap, old, new))
+        prev = np.concatenate([old, new])
+    return _window_case(n, np.concatenate(src), np.concatenate(dst), L, seed=41)
+
+
+WAVE = {"wide": _wave_wide, "star": _wave_star, "mixed": _wave_mixed}

@@ -1,8 +1,9 @@
 """Card-only tests of the port: the CUDA kernels (packed and unpacked
 layouts) against their plain versions, with and without carried bits, the
-per-edge kernels on streams aimed at their batch window too, and the main
-path and the epoch executor on the card against the same calls on
-the CPU. They skip without a CUDA device; on a machine with an NVIDIA card run
+per-edge kernels on streams aimed at their batch window too, the unpacked
+wave kernels on streams aimed at their slot ring (against the packed mega
+kernel as well), and the main path and the epoch executor on the card
+against the same calls on the CPU. They skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import EdgeStream, SubstreamConfig, mwm_pipeline
+from repro_torch.graph import waves
 from repro_torch.kernels import build
 from repro_torch.kernels.substream_match import kernel
 from repro_torch.kernels.substream_match.ops import (
@@ -23,7 +25,7 @@ from repro_torch.kernels.substream_match.ops import (
     substream_match,
     waves_inputs,
 )
-from repro_torch.testing.cases import WINDOW, ZOO, rmat_case
+from repro_torch.testing.cases import WAVE, WINDOW, ZOO, rmat_case
 
 pytestmark = pytest.mark.gpu
 
@@ -191,6 +193,101 @@ def test_unpacked_wave_kernels_match_plain_versions(cuda, case, schedule, seg_bl
     assert mb.dtype == torch.int8
     assert torch.equal(assigned, want_a)
     assert torch.equal(mb, want_mb)
+
+
+def _held_to_plain_and_packed_mega(stream, cfg, sch, schedule, seg_block, mb0, mb0_packed):
+    """The unpacked wave kernel on ``stream`` under ``sch``, its carried
+    block's set bytes made 5: equal to its plain version on the same
+    operands, and, scattered to the stream, to the packed mega kernel."""
+    if schedule == "mega":
+        args, slots = mega_inputs(stream, cfg, sch, seg_block, mb0, packed=False)
+        name, launch, plain = (kernel.MEGA_UNPACKED_NAME, kernel.substream_match_mega,
+                               kernel.substream_match_mega_plain)
+    else:
+        args, slots = waves_inputs(stream, cfg, sch, mb0, packed=False)
+        name, launch, plain = (kernel.WAVES_UNPACKED_NAME, kernel.substream_match_waves,
+                               kernel.substream_match_waves_plain)
+    if args[-1] is not None:
+        args = (*args[:-1], args[-1] * 5)
+    before = build.launches[name]
+    assigned, mb = launch(*args, packed=False)
+    assert build.launches[name] == before + 1
+    want_a, want_mb = plain(*args, packed=False)
+    torch.cuda.synchronize()
+    assert torch.equal(assigned, want_a)
+    assert torch.equal(mb, want_mb)
+    packed = substream_match(stream, cfg, schedule="mega", waves=sch, mb0=mb0_packed, packed=True)
+    assert torch.equal(waves.scatter_slot_assignments(slots, assigned, stream.num_edges),
+                       packed.assigned)
+    assert torch.equal(mb[: cfg.n, : cfg.L].ne(0), packed.mb)
+
+
+RING_CASES = [f"{name}-L{L}" for name in sorted(WAVE) for L in (64, 300, 2048)]
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("schedule, seg_block", [("mega", 1), ("mega", 2), ("mega", 4), ("waves", None)])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_unpacked_wave_kernels_on_ring_cases(cuda, case, schedule, seg_block, carried):
+    """Two waves of 5,000 edges (wider than the ring and than one pass), a
+    star of 3,000 leaves (3,000 one-edge waves), waves crossing the ring's
+    capacity both ways; rows of 64, 304 and 2048 bytes."""
+    name, L = case.split("-L")
+    c = WAVE[name](int(L))
+    if carried:
+        stream, cfg, mb0 = _carried(c, cuda)
+        mb0_packed = _carried(c, cuda, packed=True)[2]
+    else:
+        (stream, cfg), mb0, mb0_packed = _on(c, cuda), None, None
+    sch = resolve_stream_schedule(stream)
+    _held_to_plain_and_packed_mega(stream, cfg, sch, schedule, seg_block, mb0, mb0_packed)
+
+
+def test_unpacked_waves_kernel_takes_unsorted_thresholds(cuda):
+    """Threshold lanes in any order: the kernel stages no passing count and
+    compares every lane inline."""
+    for case in (rmat_case(10, edge_factor=4, L=64), WAVE["mixed"](300)):
+        stream, cfg = _on(case, cuda)
+        args, _ = waves_inputs(stream, cfg, resolve_stream_schedule(stream), packed=False)
+        lanes = args[2].clone()
+        perm = torch.randperm(cfg.L, generator=torch.Generator().manual_seed(5)).to(cuda)
+        lanes[0, : cfg.L] = lanes[0, perm]
+        moved = (*args[:2], lanes, *args[3:])
+        assigned, mb = kernel.substream_match_waves(*moved, packed=False)
+        want_a, want_mb = kernel.substream_match_waves_plain(*moved, packed=False)
+        torch.cuda.synchronize()
+        assert torch.equal(assigned, want_a)
+        assert torch.equal(mb, want_mb)
+
+
+@pytest.mark.parametrize("schedule", ["mega", "waves"])
+def test_unpacked_wave_kernels_take_unaligned_operands(cuda, schedule):
+    """Slot ids and weights that start inside a 16-byte line (views at an
+    offset): the ring is filled 4 bytes a copy."""
+    c = rmat_case(10, edge_factor=4, L=64)
+    stream, cfg = _on(c, cuda)
+    sch = resolve_stream_schedule(stream)
+    if schedule == "mega":
+        args, _ = mega_inputs(stream, cfg, sch, 2, packed=False)
+        launch, plain = kernel.substream_match_mega, kernel.substream_match_mega_plain
+    else:
+        args, _ = waves_inputs(stream, cfg, sch, packed=False)
+        launch, plain = kernel.substream_match_waves, kernel.substream_match_waves_plain
+    ids, w = args[0], args[1]
+    for shift in (1, 2, 3):
+        big_i = torch.zeros(ids.numel() + 4, dtype=torch.int32, device=cuda)
+        big_w = torch.zeros(w.numel() + 4, device=cuda)
+        big_i[shift : shift + ids.numel()] = ids.reshape(-1)
+        big_w[shift : shift + w.numel()] = w
+        i_view = big_i[shift : shift + ids.numel()].view(ids.shape)
+        w_view = big_w[shift : shift + w.numel()]
+        assert i_view.data_ptr() % 16 and w_view.data_ptr() % 16
+        moved = (i_view, w_view, *args[2:])
+        assigned, mb = launch(*moved, packed=False)
+        want_a, want_mb = plain(*args, packed=False)
+        torch.cuda.synchronize()
+        assert torch.equal(assigned, want_a)
+        assert torch.equal(mb, want_mb)
 
 
 @pytest.mark.parametrize("engine", ["edges", "waves", "mega"])
