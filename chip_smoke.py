@@ -16,11 +16,12 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   checked;
 * the unpacked main path, ``mwm_pipeline(part1="kernel", packed=False)``
   (the int8 block, one byte per substream), and the unpacked wave path on
-  the wave path's schedule, each bit-equal to its packed twin; the unpacked
-  wave kernels also on streams aimed at their slot ring (a wave of 5,000
-  edges, a star of 3,000 leaves, mixed widths; L 64, 300 and 2048; carried
-  bytes of 5; misaligned operands), held to their plain versions and to
-  the packed mega kernel;
+  the wave path's schedule, each bit-equal to its packed twin; the four
+  wave kernels (one walk) also on streams aimed at their slot ring (a wave
+  of 5,000 edges, a star of 3,000 leaves, mixed widths; L 64, 300 and
+  2048; carried blocks, unpacked with bytes of 5, packed with bits past L;
+  thresholds in any order; misaligned operands), held to their plain
+  versions and to the packed per-edge kernel on the same stream order;
 * the epoch path: ``match_epochs`` (4 epochs, and resumed from the state
   after epoch 2) equal to its one-shot run, on the blocked paper stream
   through the unpacked per-edge kernel, and at scale 16 through the wave
@@ -160,10 +161,8 @@ def phase_build():
     from repro_torch.kernels.substream_match import kernel
 
     loads = {kernel.EDGES_LIBRARY: kernel._launcher,
-             kernel.WAVES_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_NAME),
-             kernel.WAVES_UNPACKED_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_UNPACKED_NAME)}
-    sources = {kernel.EDGES_LIBRARY: kernel.EDGES_SOURCE, kernel.WAVES_LIBRARY: kernel.WAVES_SOURCE,
-               kernel.WAVES_UNPACKED_LIBRARY: kernel.WAVES_UNPACKED_SOURCE}
+             kernel.WAVES_LIBRARY: lambda: kernel._waves_launcher(kernel.MEGA_NAME)}
+    sources = {kernel.EDGES_LIBRARY: kernel.EDGES_SOURCE, kernel.WAVES_LIBRARY: kernel.WAVES_SOURCE}
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         for fut in [pool.submit(fn) for fn in loads.values()]:
             fut.result()
@@ -288,10 +287,11 @@ def _compare(a_k, mb_k, a_p, mb_p):
 
 
 def phase_wave_kernels_vs_plain(paper, paper_cfg):
-    """Both wave kernels and their plain versions on the same operands on
-    the card: the zoo, RMAT scale 12 at three L, a carried-state run,
-    seg_block 1, 2 and 4 for mega, and a prefix of the paper stream in its
-    generated order. Returns {kernel: (max_abs_err, timings at the prefix)}."""
+    """Both packed wave kernels and their plain versions on the same
+    operands on the card: the zoo, RMAT scale 12 at three L, a carried-state
+    run, seg_block 1, 2 and 4 for mega, and a prefix of the paper stream in
+    its generated order; then the ring cases (:func:`_ring_checks`).
+    Returns {kernel: (max_abs_err, timings at the prefix)}."""
     import torch
 
     from repro_torch.kernels.substream_match import kernel
@@ -339,10 +339,12 @@ def phase_wave_kernels_vs_plain(paper, paper_cfg):
                                               else args[2].shape[0] // 8)
                 timed[name] = {"plain_ms": plain_s * 1e3, "ms_at_plain_m": ms,
                                "bound_ms_at_plain_m": bound(stream.num_edges, plan_n_pad, width)[0]}
+    _ring_checks(results, max_err, *cases["rmat12_L64"][:2], packed=True)
     for name in engines:
         emit("kernel_vs_plain", kernel=name, cases=results[name], max_abs_err=max_err[name],
              plain_m=WAVE_PLAIN_PREFIX, **timed[name])
-        bad = [k for k, v in results[name].items() if not v["equal"]]
+        bad = [k for k, v in results[name].items()
+               if not (v["equal"] and v.get("equal_edges_kernel", True))]
         if bad:
             raise AssertionError(f"{name} differs from its plain version on {bad}")
     return {name: (max_err[name], timed[name]) for name in engines}
@@ -578,83 +580,106 @@ def phase_blocked_wave_route(K):
          equal_to_edges_pipeline=True)
 
 
-def _ring_checks(results, max_err, rmat_stream, rmat_cfg):
-    """The unpacked wave kernels on the streams aimed at their slot ring
+def _ring_checks(results, max_err, rmat_stream, rmat_cfg, packed):
+    """The wave kernels of one layout on the streams aimed at their slot ring
     (:data:`repro_torch.testing.cases.WAVE`) at L 64, 300 and 2048, each
-    also as its second half seeded with the first half's bits (set bytes
-    made 5), mega at seg_block 1, 2 and 4: equal to the plain version on
-    the same operands and, scattered to the stream, to the packed mega
-    kernel on the same schedule. Then ids and weights at 4, 8 and 12 bytes
-    past a 16-byte line. Adds to ``results`` and ``max_err``."""
+    also as its second half seeded with the first half's bits (unpacked:
+    set bytes made 5; packed: random bits past L and past n, which must come
+    back unchanged), mega at seg_block 1, 2 and 4: equal to the plain
+    version on the same operands and, scattered to the stream, to the packed
+    per-edge kernel on the stream's order (other code than the shared walk).
+    Then the waves kernel on thresholds whose lanes are permuted, and ids,
+    weights and a carried block at 4, 8 and 12 (block: 3, 5, 7) bytes past
+    their alignment. Adds to ``results`` and ``max_err``."""
     import torch
 
+    from repro_torch.core.bitpack import unpack_bits
     from repro_torch.graph import waves
     from repro_torch.kernels.substream_match import kernel
     from repro_torch.kernels.substream_match.ops import (
         mega_inputs, resolve_stream_schedule, substream_match, waves_inputs,
     )
-    from repro_torch.testing.cases import WAVE
+    from repro_torch.testing.cases import WAVE, at_offset, permuted_lanes, with_pad_bits
 
-    engines = {kernel.MEGA_UNPACKED_NAME: (kernel.substream_match_mega,
-                                           kernel.substream_match_mega_plain),
-               kernel.WAVES_UNPACKED_NAME: (kernel.substream_match_waves,
-                                            kernel.substream_match_waves_plain)}
+    mega_name = kernel.MEGA_NAME if packed else kernel.MEGA_UNPACKED_NAME
+    waves_name = kernel.WAVES_NAME if packed else kernel.WAVES_UNPACKED_NAME
+    engines = {mega_name: (kernel.substream_match_mega, kernel.substream_match_mega_plain),
+               waves_name: (kernel.substream_match_waves, kernel.substream_match_waves_plain)}
 
     def inputs(name, stream, cfg, sch, sb, mb0):
-        if name == kernel.MEGA_UNPACKED_NAME:
-            return mega_inputs(stream, cfg, sch, sb, mb0, packed=False)
-        return waves_inputs(stream, cfg, sch, mb0, packed=False)
+        if name == mega_name:
+            return mega_inputs(stream, cfg, sch, sb, mb0, packed=packed)
+        return waves_inputs(stream, cfg, sch, mb0, packed=packed)
+
+    def check(name, label, args, info):
+        launch, plain = engines[name]
+        a_k, mb_k = launch(*args, packed=packed)
+        a_p, mb_p = plain(*args, packed=packed)
+        torch.cuda.synchronize()
+        err = _compare(a_k, mb_k, a_p, mb_p)
+        max_err[name] = max(max_err[name], err)
+        results[name][label] = {**info, "equal": err == 0}
+        return a_k, mb_k
 
     for case, fn in WAVE.items():
         for L in (64, 300, 2048):
             stream, cfg, _ = _on_card(fn(L))
             h = stream.num_edges // 2
             head = _head(stream, 0, h)
+            mb0_packed = substream_match(head, cfg).mb_packed
             runs = {f"ring_{case}_L{L}": (stream, None, None),
                     f"ring_{case}_L{L}_mb0": (_head(stream, h, stream.num_edges),
-                                              substream_match(head, cfg, packed=False).mb,
-                                              substream_match(head, cfg).mb_packed)}
-            for label, (st, mb0, mb0_packed) in runs.items():
+                                              mb0_packed if packed
+                                              else substream_match(head, cfg, packed=False).mb,
+                                              mb0_packed)}
+            for label, (st, mb0, mb0_edges) in runs.items():
                 sch = resolve_stream_schedule(st)
-                want = substream_match(st, cfg, schedule="mega", waves=sch, mb0=mb0_packed,
-                                       packed=True)
-                for name, sb in ((kernel.MEGA_UNPACKED_NAME, 1), (kernel.MEGA_UNPACKED_NAME, 2),
-                                 (kernel.MEGA_UNPACKED_NAME, 4), (kernel.WAVES_UNPACKED_NAME, None)):
+                want = substream_match(st, cfg, mb0=mb0_edges, packed=True)  # per-edge kernel
+                for name, sb in ((mega_name, 1), (mega_name, 2), (mega_name, 4), (waves_name, None)):
                     args, slots = inputs(name, st, cfg, sch, sb, mb0)
-                    if args[-1] is not None:
+                    mask = None
+                    if args[-1] is not None and packed:
+                        carried, mask = with_pad_bits(args[-1], cfg.n, cfg.L)
+                        args = (*args[:-1], carried)
+                    elif args[-1] is not None:
                         args = (*args[:-1], args[-1] * 5)
-                    launch, plain = engines[name]
-                    a_k, mb_k = launch(*args, packed=False)
-                    a_p, mb_p = plain(*args, packed=False)
-                    torch.cuda.synchronize()
-                    err = _compare(a_k, mb_k, a_p, mb_p)
+                    key = label if sb is None else f"{label}_sb{sb}"
+                    a_k, mb_k = check(name, key, args, {"m": st.num_edges, "L": cfg.L,
+                                                        "waves": sch.num_waves,
+                                                        "max_wave": sch.max_wave_size})
+                    dense = unpack_bits(mb_k, 8 * mb_k.shape[1]) if packed else mb_k.ne(0)
                     same = (torch.equal(waves.scatter_slot_assignments(slots, a_k, st.num_edges),
                                         want.assigned)
-                            and torch.equal(mb_k[: cfg.n, : cfg.L].ne(0), want.mb))
-                    max_err[name] = max(max_err[name], err)
-                    results[name][label if sb is None else f"{label}_sb{sb}"] = {
-                        "m": st.num_edges, "L": cfg.L, "waves": sch.num_waves,
-                        "max_wave": sch.max_wave_size, "equal": err == 0,
-                        "equal_packed_mega": same}
-    sch = resolve_stream_schedule(rmat_stream)
+                            and torch.equal(dense[: cfg.n, : cfg.L], want.mb))
+                    if mask is not None:  # the carried bits outside the vertices' L come back
+                        keep = mask[: mb_k.shape[0]]
+                        same = same and torch.equal(mb_k & keep, args[-1][: mb_k.shape[0]] & keep)
+                    results[name][key]["equal_edges_kernel"] = same
+    # the waves kernel on thresholds whose first L lanes are permuted (no passing count staged)
+    for label, case in (("rmat12_L64", None), ("ring_mixed_L300", WAVE["mixed"](300)),
+                        ("ring_wide_L2048", WAVE["wide"](2048))):
+        stream, cfg = (rmat_stream, rmat_cfg) if case is None else _on_card(case)[:2]
+        args, _ = inputs(waves_name, stream, cfg, resolve_stream_schedule(stream), None, None)
+        check(waves_name, f"{label}_unsorted", (*args[:2], permuted_lanes(args[2], cfg.L), *args[3:]),
+              {"m": stream.num_edges, "L": cfg.L})
+    # ids and weights inside a 16-byte line, a carried block off its word
+    h = rmat_stream.num_edges // 2
+    mb0 = substream_match(_head(rmat_stream, 0, h), rmat_cfg, packed=packed)
+    tail = _head(rmat_stream, h, rmat_stream.num_edges)
+    sch = resolve_stream_schedule(tail)
     for name in engines:
-        args, _ = inputs(name, rmat_stream, rmat_cfg, sch, 2, None)
+        args, _ = inputs(name, tail, rmat_cfg, sch, 2, mb0.mb_packed if packed else mb0.mb)
         launch, plain = engines[name]
-        a_p, mb_p = plain(*args, packed=False)
+        a_p, mb_p = plain(*args, packed=packed)
         for shift in (1, 2, 3):
-            ids, w = args[0], args[1]
-            big_i = torch.zeros(ids.numel() + 4, dtype=torch.int32, device=ids.device)
-            big_w = torch.zeros(w.numel() + 4, device=w.device)
-            big_i[shift : shift + ids.numel()] = ids.reshape(-1)
-            big_w[shift : shift + w.numel()] = w
-            moved = (big_i[shift : shift + ids.numel()].view(ids.shape),
-                     big_w[shift : shift + w.numel()], *args[2:])
-            a_k, mb_k = launch(*moved, packed=False)
+            moved = (at_offset(args[0], shift), at_offset(args[1], shift), *args[2:-1],
+                     at_offset(args[-1], 2 * shift + 1))
+            a_k, mb_k = launch(*moved, packed=packed)
             torch.cuda.synchronize()
             err = _compare(a_k, mb_k, a_p, mb_p)
             max_err[name] = max(max_err[name], err)
-            results[name][f"rmat12_L64_misaligned{4 * shift}"] = {
-                "m": rmat_stream.num_edges, "L": rmat_cfg.L, "equal": err == 0}
+            results[name][f"rmat12_L64_mb0_misaligned{4 * shift}"] = {
+                "m": tail.num_edges, "L": rmat_cfg.L, "equal": err == 0}
 
 
 def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
@@ -744,12 +769,12 @@ def phase_unpacked_kernels_vs_plain(paper, paper_cfg, K):
                                "plain_m": stream.num_edges,
                                "bound_ms_at_plain_m": bound(stream.num_edges, n_pad, width,
                                                             packed=False)[0]}
-    _ring_checks(results, max_err, *rmat12_L64[:2])
+    _ring_checks(results, max_err, *rmat12_L64[:2], packed=False)
     for name in names:
         emit("kernel_vs_plain", kernel=name, cases=results[name], max_abs_err=max_err[name],
              **timed[name])
         bad = [k for k, v in results[name].items()
-               if not (v["equal"] and v.get("equal_packed_mega", True))]
+               if not (v["equal"] and v.get("equal_edges_kernel", True))]
         if bad:
             raise AssertionError(f"{name} differs from its plain version on {bad}")
     return {name: (max_err[name], timed[name]) for name in names}
@@ -1025,7 +1050,7 @@ def main():
         rows.append({
             "name": name, "route": "cuda",
             "source": source + ("substream_match_edges.cu" if name == kernel.UNPACKED_NAME
-                                else "substream_match_waves_unpacked.cu"),
+                                else "substream_match_waves.cu"),
             "replaces": f"src/repro/kernels/substream_match/kernel.py:{line}",
             "launches": path["launches"], "max_abs_err": err, "ms": path["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],

@@ -1,6 +1,7 @@
 // Latency probe for one CTA on the card: what a block barrier, a dependent round trip to the
 // L2 and a shared-memory acquire/release hand-off cost, in SM cycles per step. These are the
-// pieces of one wave of the unpacked wave kernels (csrc/substream_match_waves_unpacked.cu).
+// pieces of one wave of the four wave kernels
+// (src/repro_torch/kernels/substream_match/csrc/substream_match_waves.cu).
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -o build/latency_probe scripts/latency_probe.cu
 //   build/latency_probe

@@ -11,10 +11,10 @@ when non-zero).
   ``_kernel`` (``:74``), launch ``csrc/substream_match_edges.cu``;
 * :func:`substream_match_mega`, the tile megakernel
   ``_kernel_waves_mega_packed`` (``:519``), and :func:`substream_match_waves`,
-  the segment kernel ``_kernel_waves_packed`` (``:243``), launch
-  ``csrc/substream_match_waves.cu``; with ``packed=False`` they replace
-  ``_kernel_waves_mega`` (``:451``) and ``_kernel_waves`` (``:168``) and
-  launch ``csrc/substream_match_waves_unpacked.cu``.
+  the segment kernel ``_kernel_waves_packed`` (``:243``), and with
+  ``packed=False`` ``_kernel_waves_mega`` (``:451``) and ``_kernel_waves``
+  (``:168``), launch the four entries of ``csrc/substream_match_waves.cu``,
+  one walk for all four.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its ``*_plain`` version, the same function in plain PyTorch. There is no
@@ -48,24 +48,22 @@ EDGE_BATCH = 32
 EDGE_PREFETCH = 1
 EDGE_CHUNK_BITS = 64
 EDGE_STAGE_EDGES = 1024
-#: the two packed wave kernels share one source (and one library), the two
-#: unpacked ones another
+#: the four wave kernels share one source (and one library)
 MEGA_NAME = "substream_match_mega"
 WAVES_NAME = "substream_match_waves"
 MEGA_UNPACKED_NAME = "substream_match_mega_unpacked"
 WAVES_UNPACKED_NAME = "substream_match_waves_unpacked"
+WAVE_NAMES = (MEGA_NAME, WAVES_NAME, MEGA_UNPACKED_NAME, WAVES_UNPACKED_NAME)
 WAVES_LIBRARY = "substream_match_waves"
 WAVES_SOURCE = _CSRC / "substream_match_waves.cu"
-WAVES_UNPACKED_LIBRARY = "substream_match_waves_unpacked"
-WAVES_UNPACKED_SOURCE = _CSRC / "substream_match_waves_unpacked.cu"
-#: The unpacked wave kernels' schedule, compile-time constants of
-#: ``WAVES_UNPACKED_SOURCE``: one CTA of ``WAVE_THREADS`` threads walks the
-#: waves, a thread to a (slot, lane), a slot taking :func:`wave_lanes` lanes
-#: of ``WAVE_CHUNK_BITS`` substreams each (one word of the packed working
-#: copy); the last ``WAVE_STAGERS`` threads (a warp a ring) copy the ids and
-#: passing counts of wave k + ``WAVE_AHEAD`` into rings of
-#: ``WAVE_RING_SLOTS`` slots in shared memory during wave k, having planned
-#: that range during wave k - 1, and the segment offsets
+#: The wave kernels' schedule, compile-time constants of ``WAVES_SOURCE``:
+#: one CTA of ``WAVE_THREADS`` threads walks the waves, a thread to a (slot,
+#: lane), a slot taking :func:`wave_lanes` lanes of ``WAVE_CHUNK_BITS``
+#: substreams each (one 64-bit word of the packed block, or of the unpacked
+#: block's packed working copy); the last ``WAVE_STAGERS`` threads (a warp a
+#: ring) copy the ids and passing counts of wave k + ``WAVE_AHEAD`` into
+#: rings of ``WAVE_RING_SLOTS`` slots in shared memory during wave k, having
+#: planned that range during wave k - 1, and the segment offsets
 #: ``WAVE_OFFSET_AHEAD`` waves ahead into a ring of ``WAVE_OFFSET_RING``.
 WAVE_THREADS = 512
 WAVE_CHUNK_BITS = 64
@@ -263,24 +261,21 @@ def substream_match_unpacked(
 # The wave kernels: a fill-packed wave schedule, one wave after another.
 
 
-def wave_lanes(width: int) -> int:
-    """Lanes per slot of the unpacked wave kernels for rows of ``width``
-    bytes: the next power of two >= its ``WAVE_CHUNK_BITS``-substream words."""
-    words = max(1, -(-width // WAVE_CHUNK_BITS))
+def wave_lanes(lanes: int) -> int:
+    """Lanes (threads) per slot of the wave kernels' walk for rows of
+    ``lanes`` substreams (``8 * width`` packed, ``width`` unpacked): the
+    next power of two >= the row's ``WAVE_CHUNK_BITS``-substream words."""
+    words = max(1, -(-lanes // WAVE_CHUNK_BITS))
     return 1 << (words - 1).bit_length()
 
 
 def _waves_launcher(name: str):
+    fn = getattr(build.load_library(WAVES_LIBRARY, WAVES_SOURCE), name)
     ints = [ctypes.c_int] * (3 if name in (MEGA_NAME, MEGA_UNPACKED_NAME) else 2)  # + bslots
-    if name in (MEGA_UNPACKED_NAME, WAVES_UNPACKED_NAME):
-        fn = getattr(build.load_library(WAVES_UNPACKED_LIBRARY, WAVES_UNPACKED_SOURCE), name)
-        # ids, weights, thr, mb, work, counts, assigned; total, rows, width, stream
-        fn.argtypes = [ctypes.c_void_p, *ints, *[ctypes.c_void_p] * 7, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    else:
-        fn = getattr(build.load_library(WAVES_LIBRARY, WAVES_SOURCE), name)
-        fn.argtypes = [ctypes.c_void_p, *ints, *[ctypes.c_void_p] * 5, ctypes.c_int,
-                       ctypes.c_void_p]
+    # ids, weights, thr, mb, [work,] counts, assigned; total, rows, width, stream
+    ptrs = [ctypes.c_void_p] * (7 if name in (MEGA_UNPACKED_NAME, WAVES_UNPACKED_NAME) else 6)
+    fn.argtypes = [ctypes.c_void_p, *ints, *ptrs, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -318,12 +313,15 @@ def _prefix_te_table(width: int, device) -> torch.Tensor:
     return ((1 << nbits) - 1).to(torch.uint8)
 
 
-def _high_bit_table(device) -> torch.Tensor:
+def _high_bit_table(width: int, device) -> torch.Tensor:
     """[256] int32: floor(log2) of a uint8 from its float32 exponent, and a
-    sentinel for 0 low enough to stay below -1 after the word offsets."""
+    sentinel for 0 low enough to stay below -1 after the word offsets
+    (8k < 8 * width). The TPU kernel's fixed -1024 holds only up to 128
+    words (L <= 1024): past that an edge that adds nothing would read as
+    assigned."""
     i = torch.arange(256, dtype=torch.float32, device=device)
     e = (i.view(torch.int32) >> 23) - 127
-    return torch.where(i > 0, e, -1024).to(torch.int32)
+    return torch.where(i > 0, e, -8 * width - 1).to(torch.int32)
 
 
 def _check_mega(uv, weights, thresholds, seg_offsets, n_pad, seg, seg_block, mb_init, packed):
@@ -368,7 +366,7 @@ def substream_match_mega_plain(
     cnt = (weights[:, None] >= thresholds[None, :]).sum(dim=1)
     if packed:
         te_all = torch.where(loop[:, None], 0, _prefix_te_table(width, dev)[cnt]).to(torch.uint8)
-        high_bit = _high_bit_table(dev)
+        high_bit = _high_bit_table(width, dev)
         word_off = 8 * torch.arange(width, dtype=torch.int32, device=dev)
     else:
         lane = torch.arange(width, device=dev)
@@ -428,29 +426,31 @@ def substream_match_mega(
     )
 
 
-def _launch_waves(name, seg_offsets, seg, extra, ids, weights, thresholds, n_pad, width,
+def _launch_waves(name, seg_offsets, seg, extra, ids, weights, lanes, n_pad, width,
                   mb_init, packed):
     """Launch one of the wave kernels (``extra``: mega's tile size) on the
-    current stream; returns (assigned [total], mb [n_pad, width]). The
-    unpacked kernels take scratch: their packed working copy of the block,
-    one int64 word per 64 substreams of a row, and an int32 passing count
-    per slot."""
+    current stream over ``lanes``, one float32 threshold per substream;
+    returns (assigned [total], mb [n_pad, width]). Every kernel takes an
+    int32 passing count per slot as scratch; the unpacked ones also their
+    packed working copy of the block, one int64 word per 64 substreams of a
+    row. The packed block is its own working copy."""
     _check_width(width, packed)
     launch = _waves_launcher(name)
     mb = _bit_block(n_pad, width, mb_init, ids.device, packed)
     total = weights.shape[0]
     assigned = torch.full((total,), -1, dtype=torch.int32, device=ids.device)
-    block, sizes = [mb.data_ptr()], []
+    counts = torch.empty((total,), dtype=torch.int32, device=ids.device)
+    block = [mb.data_ptr()]
     if not packed:
         work = torch.empty((mb.shape[0], -(-width // WAVE_CHUNK_BITS)), dtype=torch.int64,
                            device=ids.device)
-        counts = torch.empty((total,), dtype=torch.int32, device=ids.device)
-        block, sizes = [mb.data_ptr(), work.data_ptr(), counts.data_ptr()], [total, mb.shape[0]]
+        block.append(work.data_ptr())
     with torch.cuda.device(ids.device):
         err = launch(
             seg_offsets.data_ptr(), seg_offsets.shape[0] - 1, seg, *extra,
-            ids.data_ptr(), weights.data_ptr(), thresholds.data_ptr(), *block,
-            assigned.data_ptr(), *sizes, width, torch.cuda.current_stream().cuda_stream,
+            ids.data_ptr(), weights.data_ptr(), lanes.data_ptr(), *block, counts.data_ptr(),
+            assigned.data_ptr(), total, mb.shape[0], width,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -536,7 +536,10 @@ def substream_match_waves(
             edges, weights, thresholds, seg_offsets, n_pad, seg, mb_init, packed)
     if edges.device.type != "cuda":
         raise ValueError(f"no kernel for device {edges.device}")
+    # one threshold per lane: the bit planes [8, width] as lane 8k+j = thr[j, k] (the
+    # unpacked [1, width] lanes stay as they are)
+    lanes = thresholds.t().contiguous()
     return _launch_waves(
         WAVES_NAME if packed else WAVES_UNPACKED_NAME, seg_offsets, seg, (), edges, weights,
-        thresholds, n_pad, thresholds.shape[1], mb_init, packed,
+        lanes, n_pad, thresholds.shape[1], mb_init, packed,
     )

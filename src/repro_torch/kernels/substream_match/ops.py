@@ -96,8 +96,8 @@ def device_plan(
 #: bytes of device memory per slot of a wave schedule's slot stream: the
 #: endpoint pair, the weight and the per-slot assigned index
 SLOT_BYTES = 2 * 4 + 4 + 4
-#: and, for the unpacked kernels, the int32 passing count they keep per slot
-UNPACKED_SLOT_SCRATCH = 4
+#: and the int32 passing count the wave kernels keep per slot
+SLOT_SCRATCH = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +135,7 @@ def _slot_plan(n, L, seg, num_waves, num_segments, fill, free_bytes, packed,
         **dataclasses.asdict(base), seg=seg, num_waves=num_waves,
         num_segments=num_segments, fill=fill, **mega,
     )
-    slot_bytes = SLOT_BYTES if packed else SLOT_BYTES + UNPACKED_SLOT_SCRATCH
+    slot_bytes = SLOT_BYTES + SLOT_SCRATCH
     block = plan.rows * plan.width
     if not packed:  # the unpacked kernels' packed working copy of the block
         block += plan.rows * 8 * -(-plan.width // 64)

@@ -8,18 +8,23 @@ L % 8 != 0, n not a multiple of 8, and a dense graph with weight ties.
 and their window (the previous batch and the earlier lanes): a hub, pairs
 that come back 31 to 65 edges later, self-loops inside a batch, and
 streams of 0, 1, 31, 32 and 33 edges. ``WAVE`` adds streams aimed at the
-unpacked wave kernels' slot ring and passes: two waves of 5,000 disjoint
-edges (wider than the ring and than one pass of 1,024 slots), a star of
-3,000 leaves (3,000 one-edge waves), and waves of mixed widths on both
-sides of the ring's capacity. A case holds host arrays only, so the same inputs can be handed to any
-implementation: ``EdgeStream.from_numpy(c.src, c.dst, c.w, n_pad=c.m_pad)``.
+wave kernels' slot ring and passes: two waves of 5,000 disjoint edges
+(wider than the ring and than one pass of 512 slots), a star of 3,000
+leaves (3,000 one-edge waves), and waves of mixed widths on both sides of
+the ring's capacity. A case holds host arrays only, so the same inputs can
+be handed to any implementation:
+``EdgeStream.from_numpy(c.src, c.dst, c.w, n_pad=c.m_pad)``. Last come
+three ways to perturb a kernel's operands that its result must not see:
+:func:`with_pad_bits`, :func:`permuted_lanes` and :func:`at_offset`.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
+from repro_torch.core import bitpack
 from repro_torch.graph.generators import kronecker_graph, uniform_weights
 
 
@@ -237,3 +242,37 @@ def _wave_mixed(L=64):
 
 
 WAVE = {"wide": _wave_wide, "star": _wave_star, "mixed": _wave_mixed}
+
+
+# --------------------------------------------------------------------------
+# Operand perturbations for the kernels' checks.
+
+
+def with_pad_bits(block: torch.Tensor, n: int, L: int, seed: int = 3):
+    """A packed block uint8 [rows, width] with random bits set outside the n
+    vertices' L substreams (rows past n, bits past L), and the mask of those
+    bits: a kernel must hand them back as they came."""
+    bits = torch.ones((block.shape[0], 8 * block.shape[1]), dtype=torch.bool)
+    bits[:n, :L] = False
+    mask = bitpack.pack_bits(bits).to(block.device)
+    noise = torch.randint(0, 256, tuple(block.shape), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(seed)).to(block.device)
+    return block | (noise & mask), mask
+
+
+def permuted_lanes(thresholds: torch.Tensor, L: int, seed: int = 5) -> torch.Tensor:
+    """The waves kernel's thresholds with their first L lanes in a random
+    order: bit planes [8, width] (lane 8k+j = thr[j, k]) or lanes [1, width]."""
+    flat = thresholds.t().reshape(-1).clone()
+    perm = torch.randperm(L, generator=torch.Generator().manual_seed(seed)).to(flat.device)
+    flat[:L] = flat[perm]
+    return flat.reshape(thresholds.shape[::-1]).t().contiguous()
+
+
+def at_offset(t: torch.Tensor, lead: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``lead`` elements into its own
+    allocation, so off the alignment an allocation has."""
+    big = torch.zeros(t.numel() + lead, dtype=t.dtype, device=t.device)
+    view = big[lead:].view(t.shape)
+    view.copy_(t)
+    return view

@@ -1,9 +1,9 @@
 """Card-only tests of the port: the CUDA kernels (packed and unpacked
 layouts) against their plain versions, with and without carried bits, the
-per-edge kernels on streams aimed at their batch window too, the unpacked
-wave kernels on streams aimed at their slot ring (against the packed mega
-kernel as well), and the main path and the epoch executor on the card
-against the same calls on the CPU. They skip without a CUDA device; on a machine with an NVIDIA card run
+per-edge kernels on streams aimed at their batch window too, the four
+wave kernels on streams aimed at their slot ring (against the packed
+per-edge kernel as well), and the main path and the epoch executor on the
+card against the same calls on the CPU. They skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import EdgeStream, SubstreamConfig, mwm_pipeline
+from repro_torch.core.bitpack import unpack_bits
 from repro_torch.graph import waves
 from repro_torch.kernels import build
 from repro_torch.kernels.substream_match import kernel
@@ -25,7 +26,15 @@ from repro_torch.kernels.substream_match.ops import (
     substream_match,
     waves_inputs,
 )
-from repro_torch.testing.cases import WAVE, WINDOW, ZOO, rmat_case
+from repro_torch.testing.cases import (
+    WAVE,
+    WINDOW,
+    ZOO,
+    at_offset,
+    permuted_lanes,
+    rmat_case,
+    with_pad_bits,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -195,34 +204,57 @@ def test_unpacked_wave_kernels_match_plain_versions(cuda, case, schedule, seg_bl
     assert torch.equal(mb, want_mb)
 
 
-def _held_to_plain_and_packed_mega(stream, cfg, sch, schedule, seg_block, mb0, mb0_packed):
-    """The unpacked wave kernel on ``stream`` under ``sch``, its carried
-    block's set bytes made 5: equal to its plain version on the same
-    operands, and, scattered to the stream, to the packed mega kernel."""
+def _held_to_plain_and_edges_kernel(stream, cfg, sch, schedule, seg_block, mb0, mb0_packed,
+                                    packed):
+    """The wave kernel on ``stream`` under ``sch`` in one layout: equal to
+    its plain version on the same operands, and, scattered to the stream, to
+    the packed per-edge kernel on the stream's order (other code). A carried
+    unpacked block has its set bytes made 5; a carried packed one random bits
+    past L and past n, which come back unchanged."""
     if schedule == "mega":
-        args, slots = mega_inputs(stream, cfg, sch, seg_block, mb0, packed=False)
-        name, launch, plain = (kernel.MEGA_UNPACKED_NAME, kernel.substream_match_mega,
-                               kernel.substream_match_mega_plain)
+        args, slots = mega_inputs(stream, cfg, sch, seg_block, mb0, packed=packed)
+        name, launch, plain = ((kernel.MEGA_NAME if packed else kernel.MEGA_UNPACKED_NAME),
+                               kernel.substream_match_mega, kernel.substream_match_mega_plain)
     else:
-        args, slots = waves_inputs(stream, cfg, sch, mb0, packed=False)
-        name, launch, plain = (kernel.WAVES_UNPACKED_NAME, kernel.substream_match_waves,
-                               kernel.substream_match_waves_plain)
-    if args[-1] is not None:
+        args, slots = waves_inputs(stream, cfg, sch, mb0, packed=packed)
+        name, launch, plain = ((kernel.WAVES_NAME if packed else kernel.WAVES_UNPACKED_NAME),
+                               kernel.substream_match_waves, kernel.substream_match_waves_plain)
+    mask = None
+    if args[-1] is not None and packed:
+        carried, mask = with_pad_bits(args[-1], cfg.n, cfg.L)
+        args = (*args[:-1], carried)
+    elif args[-1] is not None:
         args = (*args[:-1], args[-1] * 5)
     before = build.launches[name]
-    assigned, mb = launch(*args, packed=False)
+    assigned, mb = launch(*args, packed=packed)
     assert build.launches[name] == before + 1
-    want_a, want_mb = plain(*args, packed=False)
+    want_a, want_mb = plain(*args, packed=packed)
     torch.cuda.synchronize()
     assert torch.equal(assigned, want_a)
     assert torch.equal(mb, want_mb)
-    packed = substream_match(stream, cfg, schedule="mega", waves=sch, mb0=mb0_packed, packed=True)
+    if mask is not None:
+        n_pad = mb.shape[0]
+        assert torch.equal(mb & mask[:n_pad], args[-1][:n_pad] & mask[:n_pad])
+    edges = substream_match(stream, cfg, mb0=mb0_packed, packed=True)
     assert torch.equal(waves.scatter_slot_assignments(slots, assigned, stream.num_edges),
-                       packed.assigned)
-    assert torch.equal(mb[: cfg.n, : cfg.L].ne(0), packed.mb)
+                       edges.assigned)
+    dense = unpack_bits(mb, 8 * mb.shape[1]) if packed else mb.ne(0)
+    assert torch.equal(dense[: cfg.n, : cfg.L], edges.mb)
 
 
 RING_CASES = [f"{name}-L{L}" for name in sorted(WAVE) for L in (64, 300, 2048)]
+
+
+def _ring_case(case, cuda, carried, packed):
+    name, L = case.split("-L")
+    c = WAVE[name](int(L))
+    if carried:
+        stream, cfg, mb0_packed = _carried(c, cuda, packed=True)
+        mb0 = mb0_packed if packed else _carried(c, cuda)[2]
+    else:
+        (stream, cfg), mb0, mb0_packed = _on(c, cuda), None, None
+    sch = resolve_stream_schedule(stream)
+    return stream, cfg, sch, mb0, mb0_packed
 
 
 @pytest.mark.parametrize("carried", [False, True])
@@ -232,15 +264,20 @@ def test_unpacked_wave_kernels_on_ring_cases(cuda, case, schedule, seg_block, ca
     """Two waves of 5,000 edges (wider than the ring and than one pass), a
     star of 3,000 leaves (3,000 one-edge waves), waves crossing the ring's
     capacity both ways; rows of 64, 304 and 2048 bytes."""
-    name, L = case.split("-L")
-    c = WAVE[name](int(L))
-    if carried:
-        stream, cfg, mb0 = _carried(c, cuda)
-        mb0_packed = _carried(c, cuda, packed=True)[2]
-    else:
-        (stream, cfg), mb0, mb0_packed = _on(c, cuda), None, None
-    sch = resolve_stream_schedule(stream)
-    _held_to_plain_and_packed_mega(stream, cfg, sch, schedule, seg_block, mb0, mb0_packed)
+    stream, cfg, sch, mb0, mb0_packed = _ring_case(case, cuda, carried, packed=False)
+    _held_to_plain_and_edges_kernel(stream, cfg, sch, schedule, seg_block, mb0, mb0_packed,
+                                    packed=False)
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("schedule, seg_block", [("mega", 1), ("mega", 2), ("mega", 4), ("waves", None)])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_packed_wave_kernels_on_ring_cases(cuda, case, schedule, seg_block, carried):
+    """The same streams on the packed block walked in place: rows of 8, 40
+    and 256 bytes."""
+    stream, cfg, sch, mb0, mb0_packed = _ring_case(case, cuda, carried, packed=True)
+    _held_to_plain_and_edges_kernel(stream, cfg, sch, schedule, seg_block, mb0, mb0_packed,
+                                    packed=True)
 
 
 def test_unpacked_waves_kernel_takes_unsorted_thresholds(cuda):
@@ -249,10 +286,7 @@ def test_unpacked_waves_kernel_takes_unsorted_thresholds(cuda):
     for case in (rmat_case(10, edge_factor=4, L=64), WAVE["mixed"](300)):
         stream, cfg = _on(case, cuda)
         args, _ = waves_inputs(stream, cfg, resolve_stream_schedule(stream), packed=False)
-        lanes = args[2].clone()
-        perm = torch.randperm(cfg.L, generator=torch.Generator().manual_seed(5)).to(cuda)
-        lanes[0, : cfg.L] = lanes[0, perm]
-        moved = (*args[:2], lanes, *args[3:])
+        moved = (*args[:2], permuted_lanes(args[2], cfg.L), *args[3:])
         assigned, mb = kernel.substream_match_waves(*moved, packed=False)
         want_a, want_mb = kernel.substream_match_waves_plain(*moved, packed=False)
         torch.cuda.synchronize()
@@ -260,34 +294,80 @@ def test_unpacked_waves_kernel_takes_unsorted_thresholds(cuda):
         assert torch.equal(mb, want_mb)
 
 
-@pytest.mark.parametrize("schedule", ["mega", "waves"])
-def test_unpacked_wave_kernels_take_unaligned_operands(cuda, schedule):
-    """Slot ids and weights that start inside a 16-byte line (views at an
-    offset): the ring is filled 4 bytes a copy."""
+def test_packed_waves_kernel_takes_unsorted_bit_planes(cuda):
+    """Bit planes whose lanes are in any order, with a carried block too."""
+    for case in (rmat_case(10, edge_factor=4, L=64), WAVE["mixed"](300), WAVE["wide"](2048)):
+        for carried in (False, True):
+            stream, cfg, mb0 = _carried(case, cuda, True) if carried else (*_on(case, cuda), None)
+            args, _ = waves_inputs(stream, cfg, resolve_stream_schedule(stream), mb0)
+            moved = (*args[:2], permuted_lanes(args[2], cfg.L), *args[3:])
+            assigned, mb = kernel.substream_match_waves(*moved)
+            want_a, want_mb = kernel.substream_match_waves_plain(*moved)
+            torch.cuda.synchronize()
+            assert torch.equal(assigned, want_a)
+            assert torch.equal(mb, want_mb)
+
+
+def _unaligned(cuda, schedule, packed):
+    """Slot ids and weights that start inside a 16-byte line (views 4, 8
+    and 12 bytes past it): the ring is filled 4 bytes a copy; and a carried
+    block that starts 3, 5 or 7 bytes past a word, which the wrapper copies
+    into place. Each equal to the plain version on aligned operands."""
     c = rmat_case(10, edge_factor=4, L=64)
-    stream, cfg = _on(c, cuda)
+    stream, cfg, mb0 = _carried(c, cuda, packed)
     sch = resolve_stream_schedule(stream)
     if schedule == "mega":
-        args, _ = mega_inputs(stream, cfg, sch, 2, packed=False)
+        args, _ = mega_inputs(stream, cfg, sch, 2, mb0, packed)
         launch, plain = kernel.substream_match_mega, kernel.substream_match_mega_plain
     else:
-        args, _ = waves_inputs(stream, cfg, sch, packed=False)
+        args, _ = waves_inputs(stream, cfg, sch, mb0, packed)
         launch, plain = kernel.substream_match_waves, kernel.substream_match_waves_plain
-    ids, w = args[0], args[1]
+    want_a, want_mb = plain(*args, packed=packed)
     for shift in (1, 2, 3):
-        big_i = torch.zeros(ids.numel() + 4, dtype=torch.int32, device=cuda)
-        big_w = torch.zeros(w.numel() + 4, device=cuda)
-        big_i[shift : shift + ids.numel()] = ids.reshape(-1)
-        big_w[shift : shift + w.numel()] = w
-        i_view = big_i[shift : shift + ids.numel()].view(ids.shape)
-        w_view = big_w[shift : shift + w.numel()]
-        assert i_view.data_ptr() % 16 and w_view.data_ptr() % 16
-        moved = (i_view, w_view, *args[2:])
-        assigned, mb = launch(*moved, packed=False)
-        want_a, want_mb = plain(*args, packed=False)
+        ids, w, block = at_offset(args[0], shift), at_offset(args[1], shift), at_offset(
+            args[-1], 2 * shift + 1)
+        assert ids.data_ptr() % 16 and w.data_ptr() % 16 and block.data_ptr() % 8
+        assigned, mb = launch(ids, w, *args[2:-1], block, packed=packed)
         torch.cuda.synchronize()
         assert torch.equal(assigned, want_a)
         assert torch.equal(mb, want_mb)
+
+
+@pytest.mark.parametrize("schedule", ["mega", "waves"])
+def test_unpacked_wave_kernels_take_unaligned_operands(cuda, schedule):
+    _unaligned(cuda, schedule, packed=False)
+
+
+@pytest.mark.parametrize("schedule", ["mega", "waves"])
+def test_packed_wave_kernels_take_unaligned_operands(cuda, schedule):
+    _unaligned(cuda, schedule, packed=True)
+
+
+@pytest.mark.parametrize("name", kernel.WAVE_NAMES)
+def test_wave_launch_refuses_a_misaligned_block(cuda, name):
+    """The walk moves whole 64-bit words of the block (16-byte pieces
+    unpacked): a block pointer off that alignment is refused before any
+    launch (cudaErrorInvalidValue), not read torn."""
+    packed = name in (kernel.MEGA_NAME, kernel.WAVES_NAME)
+    mega = name in (kernel.MEGA_NAME, kernel.MEGA_UNPACKED_NAME)
+    width, rows, total = (8 if packed else 64), 16, 8
+    block = torch.zeros(rows * width + 16, dtype=torch.uint8, device=cuda)
+    ids = torch.zeros(2 * total, dtype=torch.int32, device=cuda)  # self-loops on row 0
+    w = torch.ones(total, device=cuda)
+    thr = torch.full((8 * width if packed else width,), float("inf"), device=cuda)
+    offs = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    work = torch.empty((rows, 1), dtype=torch.int64, device=cuda)
+    counts = torch.empty(total, dtype=torch.int32, device=cuda)
+    assigned = torch.full((total,), -1, dtype=torch.int32, device=cuda)
+    fn = kernel._waves_launcher(name)
+    for lead in (0, 4):
+        ptrs = [ids.data_ptr(), w.data_ptr(), thr.data_ptr(), block.data_ptr() + lead,
+                *([] if packed else [work.data_ptr()]), counts.data_ptr(), assigned.data_ptr()]
+        err = fn(offs.data_ptr(), 1, total, *((total,) if mega else ()), *ptrs, total, rows,
+                 width, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert (err != 0) == (lead != 0), (lead, err)
+    assert not block.any() and bool((assigned == -1).all())
 
 
 @pytest.mark.parametrize("engine", ["edges", "waves", "mega"])

@@ -37,7 +37,8 @@ CASES = {**ZOO,
          "rmat10_L13": lambda: rmat_case(10, edge_factor=4, L=13, pad=3),
          "rmat10_L64": lambda: rmat_case(10, edge_factor=4, L=64),
          "rmat10_L300": lambda: rmat_case(10, edge_factor=4, L=300, eps=0.01, seed=1),
-         "rmat12_L64": lambda: rmat_case(12, edge_factor=4, L=64, seed=2)}
+         "rmat12_L64": lambda: rmat_case(12, edge_factor=4, L=64, seed=2),
+         "rmat8_L2048": lambda: rmat_case(8, edge_factor=4, L=2048, eps=0.002, seed=3)}
 ENGINES = [("waves", None), ("mega", 1), ("mega", 2), ("mega", 4)]
 FIELDS = ("wave", "order", "offsets", "slots", "seg_offsets")
 

@@ -1,9 +1,10 @@
-"""The unpacked wave kernels' schedule, modelled in numpy and held to the JAX oracles.
+"""The wave kernels' schedule, modelled in numpy and held to the JAX oracles.
 
-The CUDA kernels of ``csrc/substream_match_waves_unpacked.cu`` walk the waves
-in one CTA of ``WAVE_THREADS`` threads with one barrier per wave, a thread
-to a (slot, lane), a slot taking ``wave_lanes(width)`` lanes of
-``WAVE_CHUNK_BITS`` substreams, on a packed working copy of the int8 block
+The four CUDA kernels of ``csrc/substream_match_waves.cu`` share one walk:
+the waves in one CTA of ``WAVE_THREADS`` threads with one barrier per wave,
+a thread to a (slot, lane), a slot taking ``wave_lanes(lanes)`` lanes of
+``WAVE_CHUNK_BITS`` substreams, on 64-bit words of the block: the packed
+uint8 block itself, or a packed working copy of the unpacked int8 block
 (packed before the walk, unpacked after it); a wave wider than a pass runs
 in several. The slot stream is staged in rings in shared memory: the
 segment offsets ``WAVE_OFFSET_AHEAD`` waves ahead, the ids and passing
@@ -18,8 +19,8 @@ to the JAX package's dense oracle (``repro.kernels.substream_match.ref``)
 and CS-SEQ scan (``repro.core.mwm_scan``) on the zoo, RMAT 8/10 and the
 streams aimed at the ring (two waves of 5,000 edges, a star of 3,000
 leaves, waves that cross the ring's capacity both ways), at L in {13, 64,
-300}, through both kernels (mega at seg_block 1, 2 and 4), with and without
-carried bits.
+300}, through both kernels (mega at seg_block 1, 2 and 4) in both layouts,
+with and without carried bits.
 """
 import functools
 import re
@@ -31,16 +32,20 @@ import pytest
 import torch
 
 import repro.core as jcore
+from repro.core.bitpack import pack_bits as jpack
 from repro.kernels.substream_match.ref import substream_match_ref as jref
 from repro_torch.convert import config_from_reference, mb0_from_reference, stream_from_arrays
 from repro_torch.graph import waves
 from repro_torch.kernels.substream_match import kernel
+from repro_torch.core.bitpack import pack_bits
 from repro_torch.kernels.substream_match.ops import (
+    _mb0_pad,
+    device_plan,
     mega_inputs,
     resolve_stream_schedule,
     waves_inputs,
 )
-from repro_torch.testing.cases import WAVE, ZOO, rmat_case
+from repro_torch.testing.cases import WAVE, ZOO, permuted_lanes, rmat_case
 
 ITEMS = kernel.WAVE_THREADS
 BITS, RING = kernel.WAVE_CHUNK_BITS, kernel.WAVE_RING_SLOTS
@@ -89,22 +94,32 @@ def _unpack(work, width):
     return np.unpackbits(raw, axis=1, bitorder="little")[:, :width].astype(np.int8)
 
 
-def ring_model(ids, weights, thr, seg_offsets, n_pad, seg, bslots, mb_init, mega):
+def ring_model(ids, weights, thr, seg_offsets, n_pad, seg, bslots, mb_init, mega, packed=False):
     """The kernel's walk in numpy on the wrapper's operands (numpy in and
-    out). Returns (assigned [total], block [n_pad, width], stats)."""
-    ids, weights, thr, offsets = (np.asarray(x) for x in (ids, weights, thr, seg_offsets))
-    ids, thr = ids.reshape(-1).astype(np.int64), thr.reshape(-1)
-    width = thr.shape[0]
-    chunks = -(-width // BITS)
-    G = kernel.wave_lanes(width)
+    out), in the layout ``packed`` names. Returns (assigned [total], block
+    [n_pad, width] in the layout's type, stats)."""
+    ids, weights, offsets = (np.asarray(x) for x in (ids, weights, seg_offsets))
+    # one threshold a lane, as the wrapper hands them over: bit planes [8, width] as lane
+    # 8k+j = thr[j, k]; unpacked lanes [1, width] and mega's flat vector as they are
+    ids, thr = ids.reshape(-1).astype(np.int64), np.asarray(thr).T.reshape(-1)
+    lanes = thr.shape[0]
+    chunks = -(-lanes // BITS)
+    G = kernel.wave_lanes(lanes)
     P = ITEMS // G
     rows = n_pad + kernel.SACRIFICIAL_ROWS
-    block = (np.zeros((rows, width), np.int8) if mb_init is None
-             else (np.asarray(mb_init) != 0).astype(np.int8))
-    work = _pack(block, chunks)
+    if packed:  # the block is its own working copy: its rows are whole 64-bit words
+        width = lanes // 8
+        block = np.zeros((rows, width), np.uint8) if mb_init is None else np.array(mb_init, np.uint8)
+        work = block.view("<u8")
+        assert work.shape == (rows, chunks)
+    else:
+        width = lanes
+        block = (np.zeros((rows, width), np.int8) if mb_init is None
+                 else (np.asarray(mb_init) != 0).astype(np.int8))
+        work = _pack(block, chunks)
     nw = offsets.shape[0] - 1
     assigned = np.full(weights.shape[0], -1, np.int32)
-    lanes = np.arange(G)
+    lane_ids = np.arange(G)
 
     def slot_of(k, wave):
         return int(off.get([k], wave)[0]) * seg
@@ -128,12 +143,12 @@ def ring_model(ids, weights, thr, seg_offsets, n_pad, seg, bslots, mb_init, mega
     def eligibility(val, u, v):
         """uint64 [slots, G]: lane c's word over substreams 64c..64c+63, the prefix below
         the passing count, or (unsorted) bit i = (w >= thr[64c + i]), none on u == v."""
-        b = BITS * lanes[:, None] + np.arange(BITS)[None, :]
+        b = BITS * lane_ids[:, None] + np.arange(BITS)[None, :]
         if sorted_thr:
             bits = b[None] < val[:, None, None]
         else:
-            ok = b < width
-            t = np.where(ok, thr[np.minimum(b, width - 1)], 0)
+            ok = b < lanes
+            t = np.where(ok, thr[np.minimum(b, lanes - 1)], 0)
             bits = ok[None] & (val[:, None, None] >= t[None]) & (u != v)[:, None, None]
         return np.packbits(bits, axis=2, bitorder="little").view("<u8")[..., 0]
 
@@ -199,7 +214,7 @@ def ring_model(ids, weights, thr, seg_offsets, n_pad, seg, bslots, mb_init, mega
             live += n
             stats["passes"] += 1
         assert len(touched) == 2 * live, "a wave's slots share a vertex"
-    return assigned, _unpack(work, width)[:n_pad], stats
+    return assigned, (block if packed else _unpack(work, width))[:n_pad], stats
 
 
 CASES = {**{f"zoo_{k}": v for k, v in ZOO.items()},
@@ -250,32 +265,56 @@ def _oracle(case, split):
     return np.asarray(a2), np.asarray(mb2).astype(bool), np.asarray(mb1).astype(bool)
 
 
-def _run(case, engine, carried=False):
-    """The model over the case's operands for one engine; returns the
-    stream-order assigned and dense bits, and the model's stats."""
+def _pad_mask(n, L, rows, width):
+    """uint8 [rows, width]: the packed block's bits outside the n vertices' L substreams."""
+    bits = np.ones((rows, 8 * width), bool)
+    bits[:n, :L] = False
+    return np.packbits(bits, axis=1, bitorder="little")
+
+
+def _dense(mb, cfg, packed):
+    """The block's bits of the n vertices' L substreams, bool [n, L]."""
+    if packed:
+        mb = np.unpackbits(mb, axis=1, bitorder="little")
+    return mb[: cfg.n, : cfg.L] != 0
+
+
+def _run(case, engine, carried=False, packed=False):
+    """The model over the case's operands for one engine in one layout;
+    returns the stream-order assigned and dense bits, and the model's stats.
+    A carried packed block also holds random bits outside the vertices'
+    substreams, which must come back unchanged."""
     want_a, want_mb, mb1 = _oracle(case, carried)
     js = _pair(case)[0]
     lo = js.src.shape[0] // 2 if carried else None
     stream, cfg = _stream(case, lo, None)
+    if mb1 is not None and packed:
+        mb1 = np.asarray(jpack(jnp.asarray(mb1)))
     mb0 = None if mb1 is None else mb0_from_reference(mb1, device="cpu")
     sch = resolve_stream_schedule(stream)
     if engine == "waves":
-        args, slots = waves_inputs(stream, cfg, sch, mb0, packed=False)
+        args, slots = waves_inputs(stream, cfg, sch, mb0, packed=packed)
         edges, w, thr, offs, n_pad, seg, mb_init = args
         bslots, mega = 1, False
     else:
-        args, slots = mega_inputs(stream, cfg, sch, int(engine[4:]), mb0, packed=False)
+        args, slots = mega_inputs(stream, cfg, sch, int(engine[4:]), mb0, packed=packed)
         edges, w, thr, offs, n_pad, seg, seg_block, mb_init = args
         bslots, mega = seg_block * seg, True
-    if mb_init is not None:  # a carried non-zero byte is a set bit, whatever its value
-        rng = np.random.default_rng(7)
+    rng = np.random.default_rng(7)
+    pad = None
+    if mb_init is not None and packed:
+        pad = _pad_mask(cfg.n, cfg.L, *mb_init.shape)
+        mb_init = mb_init | torch.from_numpy(rng.integers(0, 256, pad.shape, np.uint8) & pad)
+    elif mb_init is not None:  # a carried non-zero byte is a set bit, whatever its value
         mb_init = mb_init * torch.from_numpy(rng.integers(1, 100, mb_init.shape).astype(np.int8))
     a_slots, mb, stats = ring_model(edges.numpy(), w.numpy(), thr.numpy(), offs.numpy(), n_pad,
                                     seg, bslots, None if mb_init is None else mb_init.numpy(),
-                                    mega)
+                                    mega, packed)
+    if pad is not None:
+        np.testing.assert_array_equal(mb & pad[:n_pad], mb_init.numpy()[:n_pad] & pad[:n_pad])
     got_a = waves.scatter_slot_assignments(slots, torch.from_numpy(a_slots),
                                            stream.num_edges).numpy()
-    return got_a, mb[: cfg.n, : cfg.L] != 0, (want_a, want_mb), stats
+    return got_a, _dense(mb, cfg, packed), (want_a, want_mb), stats
 
 
 PARAMS = [(c, e) for c in sorted(CASES) for e in ENGINES]
@@ -284,6 +323,14 @@ PARAMS = [(c, e) for c in sorted(CASES) for e in ENGINES]
 @pytest.mark.parametrize("case, engine", PARAMS)
 def test_ring_model_matches_oracles(case, engine):
     got_a, got_mb, (want_a, want_mb), _ = _run(case, engine)
+    np.testing.assert_array_equal(got_a, want_a)
+    np.testing.assert_array_equal(got_mb, want_mb)
+
+
+@pytest.mark.parametrize("case, engine", PARAMS)
+def test_packed_ring_model_matches_oracles(case, engine):
+    """The same walk on the packed block's own 64-bit words."""
+    got_a, got_mb, (want_a, want_mb), _ = _run(case, engine, packed=True)
     np.testing.assert_array_equal(got_a, want_a)
     np.testing.assert_array_equal(got_mb, want_mb)
 
@@ -301,25 +348,46 @@ def test_ring_model_carries_bits(case, engine):
     np.testing.assert_array_equal(got_mb, want_mb)
 
 
+@pytest.mark.parametrize("engine", ["waves", "mega2"])
+@pytest.mark.parametrize("case", CARRIED)
+def test_packed_ring_model_carries_bits(case, engine):
+    """The second half of the stream seeded with the first half's packed
+    bits, and random bits past L and past n that come back unchanged."""
+    got_a, got_mb, (want_a, want_mb), _ = _run(case, engine, carried=True, packed=True)
+    np.testing.assert_array_equal(got_a, want_a)
+    np.testing.assert_array_equal(got_mb, want_mb)
+
+
+def _unsorted(case, packed):
+    """The waves kernel on thresholds whose L lanes are permuted, against the
+    dense oracle on the same permuted thresholds."""
+    js, jcfg, _, _ = _pair(case)
+    stream, cfg = _stream(case)
+    args, slots = waves_inputs(stream, cfg, resolve_stream_schedule(stream), packed=packed)
+    edges, w, planes, offs, n_pad, seg, _ = args
+    planes = permuted_lanes(planes, jcfg.L)
+    thr = planes.t().reshape(-1)[: jcfg.L].numpy()  # the thresholds in lane order
+    a_slots, mb, _ = ring_model(edges.numpy(), w.numpy(), planes.numpy(), offs.numpy(), n_pad, seg,
+                                1, None, False, packed)
+    want_a, want_mb = jref(js.src, js.dst, jnp.where(js.valid, js.weight, 0.0), jnp.asarray(thr),
+                           jcfg.n)
+    got_a = waves.scatter_slot_assignments(slots, torch.from_numpy(a_slots), stream.num_edges)
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    np.testing.assert_array_equal(_dense(mb, cfg, packed), np.asarray(want_mb).astype(bool))
+
+
 @pytest.mark.parametrize("case", ["rmat8_L13", "mixed_L64", "wide_L300"])
 def test_ring_model_takes_unsorted_thresholds(case):
     """The waves kernel takes its thresholds in any order: with the lanes
     permuted no passing count is staged, and every compare is made inline.
     Held to the dense oracle on the same permuted thresholds."""
-    js, jcfg, thr, _ = _pair(case)
-    stream, cfg = _stream(case)
-    perm = np.random.default_rng(5).permutation(jcfg.L)
-    args, slots = waves_inputs(stream, cfg, resolve_stream_schedule(stream), packed=False)
-    edges, w, lanes, offs, n_pad, seg, _ = args
-    lanes = lanes.clone()
-    lanes[0, : jcfg.L] = lanes[0, perm]
-    a_slots, mb, _ = ring_model(edges.numpy(), w.numpy(), lanes.numpy(), offs.numpy(), n_pad, seg,
-                                1, None, False)
-    want_a, want_mb = jref(js.src, js.dst, jnp.where(js.valid, js.weight, 0.0),
-                           jnp.asarray(thr[perm]), jcfg.n)
-    got_a = waves.scatter_slot_assignments(slots, torch.from_numpy(a_slots), stream.num_edges)
-    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
-    np.testing.assert_array_equal(mb[: cfg.n, : cfg.L] != 0, np.asarray(want_mb).astype(bool))
+    _unsorted(case, packed=False)
+
+
+@pytest.mark.parametrize("case", ["rmat8_L13", "mixed_L64", "wide_L300"])
+def test_packed_ring_model_takes_unsorted_bit_planes(case):
+    """The same with the bit planes [8, width] permuted across lanes."""
+    _unsorted(case, packed=True)
 
 
 def test_ring_cases_reach_the_ring():
@@ -343,8 +411,9 @@ def test_ring_cases_reach_the_ring():
 
 def test_schedule_constants_match_the_source():
     """kernel.py's constants are the CUDA source's compile-time constants,
-    and the unpacked launchers live in their own source."""
-    src = kernel.WAVES_UNPACKED_SOURCE.read_text()
+    and the four wave kernels are entries of that one source, over one walk
+    (count_passing, pack_block, unpack_block and the walk are its kernels)."""
+    src = kernel.WAVES_SOURCE.read_text()
     want = {"kThreads": kernel.WAVE_THREADS,
             "kChunkBits": BITS, "kRingSlots": RING, "kAhead": AHEAD,
             "kOffsetAhead": OFF_AHEAD, "kOffsetRing": OFF_RING, "kStagers": kernel.WAVE_STAGERS,
@@ -352,11 +421,27 @@ def test_schedule_constants_match_the_source():
     for name, value in want.items():
         found = re.findall(rf"constexpr int {name} = (\d+);", src)
         assert found == [str(value)], name
-    for entry in (kernel.MEGA_UNPACKED_NAME, kernel.WAVES_UNPACKED_NAME):
-        assert f'extern "C" int {entry}(' in src
-        assert f'extern "C" int {entry}(' not in kernel.WAVES_SOURCE.read_text()
-    for entry in (kernel.MEGA_NAME, kernel.WAVES_NAME):
-        assert f'extern "C" int {entry}(' in kernel.WAVES_SOURCE.read_text()
+    for entry in kernel.WAVE_NAMES:
+        assert src.count(f'extern "C" int {entry}(') == 1, entry
+    assert re.findall(r"__global__ void(?: __launch_bounds__\(kThreads, 1\))? (\w+)\(", src) == [
+        "pack_block", "unpack_block", "count_passing", "substream_match_walk"]
+    assert 8 * kernel.MAX_WIDTH == kernel.MAX_UNPACKED_WIDTH
+
+
+@pytest.mark.parametrize("L", [1, 8, 13, 64, 65, 300, 2048])
+def test_packed_block_is_the_working_copy(L):
+    """A packed row (round_up(ceil(L/8), 8) bytes, LSB first) read as
+    little-endian 64-bit words is the unpacked kernels' working copy of the
+    same bits, so the packed kernels walk their own block; and both layouts
+    give a slot the same lanes."""
+    packed, unpacked = device_plan(21, L), device_plan(21, L, packed=False)
+    rows = packed.n_pad + kernel.SACRIFICIAL_ROWS
+    bits = torch.from_numpy(np.random.default_rng(L).random((21, L)) < 0.5)
+    block = _mb0_pad(pack_bits(bits), 21, packed.words, rows, packed.width, "cpu").numpy()
+    dense = _mb0_pad(bits, 21, L, rows, unpacked.width, "cpu", packed=False).numpy()
+    chunks = -(-unpacked.width // BITS)
+    np.testing.assert_array_equal(block.view("<u8"), _pack(dense, chunks))
+    assert kernel.wave_lanes(8 * packed.width) == kernel.wave_lanes(unpacked.width)
 
 
 @pytest.mark.parametrize("width, lanes", [(16, 1), (64, 1), (80, 2), (128, 2), (144, 4),
