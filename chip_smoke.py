@@ -26,7 +26,16 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   after epoch 2) equal to its one-shot run, on the blocked paper stream
   through the unpacked per-edge kernel, and at scale 16 through the wave
   kernels in both layouts;
-* the blocked order through the wave kernels at scale 16.
+* the blocked order through the wave kernels at scale 16;
+* the robustness and observability layers: ``merge_device`` (Part 2 on the
+  card, through the packed per-edge kernel at L = 1) against
+  ``merge_host``; the main path with an enabled ``Telemetry``;
+  ``validate_stream`` in strict and sanitize modes on the paper stream,
+  clean and poisoned; the fallback ladder at scale 16 (its kernel rungs,
+  the only ones on the card), clean and with each rung refused in turn,
+  both layouts, and at L = 2049; the epoch path with a snapshot per epoch, killed after epoch 2
+  and resumed from disk with one transient flake retried by the
+  ``ExecutionGuard``.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -34,6 +43,7 @@ script exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
 import concurrent.futures
+import contextlib
 import functools
 import json
 import pathlib
@@ -219,13 +229,19 @@ def _head(stream, lo, hi):
 
 def _window_cases():
     """The streams aimed at the per-edge kernels' batch window
-    (:data:`repro_torch.testing.cases.WINDOW`) at L = 64, and the hub and
-    the pairs 33 edges apart at L = 2048 (32 column chunks)."""
+    (:data:`repro_torch.testing.cases.WINDOW`) at L = 64, the hub and the
+    pairs 33 edges apart at L = 2048 (32 column chunks), and every window
+    stream at L = 1, with its weights and with all weights 1."""
+    import numpy as np
+
     from repro_torch.testing.cases import WINDOW
 
     cases = {f"window_{name}": _on_card(fn()) for name, fn in WINDOW.items()}
     for name in ("hub", "repeat_d33"):
         cases[f"window_{name}_L2048"] = _on_card(WINDOW[name](2048))
+    for name, fn in WINDOW.items():  # one substream: merge_device's shape (weights 1)
+        cases[f"window_{name}_L1"] = _on_card(fn(1))
+        cases[f"window_{name}_L1_ones"] = _on_card(fn(1)._replace(w=np.ones(fn(1).w.shape, np.float32)))
     return cases
 
 
@@ -415,7 +431,8 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
          recorded_edges=recorded, matched_edges=int(idx.size), weight=weight,
          check_matching="passed")
     return {"m": m, "ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "launches": launches[kernel.NAME], "result": result, "idx": idx, "weight": weight}
+            "launches": launches[kernel.NAME], "result": result, "idx": idx, "weight": weight,
+            "pipeline_s": pipeline_s, "merge_host_s": merge_s}
 
 
 def phase_wave_path(config, stream, cfg):
@@ -986,6 +1003,415 @@ def phase_epoch_path(cfg, unpacked):
          equal_to_one_shot=True, scale16_generated={"m": stream.num_edges,
                                                     "generate_host_seconds": gen_s,
                                                     "runs": waves_runs})
+    return full
+
+
+def phase_merge_device(stream, cfg, main):
+    """Part 2 on the card at full size: ``merge_device`` through the public
+    entry point, counted, equal to ``merge_host``'s indices, and timed again
+    in a second call; then staged:
+    the merge order (nonzero and one stable sort of the R recorded edges),
+    the one-substream operands, the packed per-edge kernel at L = 1 (CUDA
+    events, median of 3) and the scatter back to stream positions. The
+    L = 1 kernel also meets its plain version on the first PLAIN_PREFIX
+    edges of the merge order. Returns the kernel's figures at L = 1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import EdgeStream, SubstreamConfig
+    from repro_torch.core.merge import merge_order
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import device_plan, kernel_inputs, merge_device
+
+    result = main["result"]
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    mask = merge_device(stream, result, cfg)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    if launches.get(kernel.NAME, 0) < 1:
+        raise AssertionError(f"merge_device launched no {kernel.NAME}: {launches}")
+    idx = torch.nonzero(mask).flatten().cpu().numpy()
+    if not np.array_equal(idx, main["idx"]):
+        raise AssertionError("merge_device differs from merge_host")
+    t0 = time.perf_counter()
+    again = merge_device(stream, result, cfg)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    if not torch.equal(again, mask):
+        raise AssertionError("a second merge_device differs from the first")
+    order_ms, order = cuda_ms(lambda: merge_order(result, cfg))
+    r = order.numel()
+    one_cfg = SubstreamConfig(n=cfg.n, L=1, eps=cfg.eps)
+
+    def operands():
+        ones = torch.ones(r, dtype=torch.float32, device=stream.device)
+        one = EdgeStream(src=stream.src[order], dst=stream.dst[order], weight=ones,
+                         valid=ones.bool())
+        return kernel_inputs(one, one_cfg)
+
+    operands_ms, args = cuda_ms(operands)
+    runs, out = [], None
+    for _ in range(3):
+        ms, out = cuda_ms(lambda: kernel.substream_match_packed(*args))
+        runs.append(ms)
+    kernel_ms = sorted(runs)[1]
+
+    def scatter():
+        staged = torch.zeros(stream.num_edges, dtype=torch.bool, device=stream.device)
+        staged[order] = out[0] >= 0
+        return staged
+
+    scatter_ms, staged = cuda_ms(scatter)
+    if not torch.equal(staged, mask):
+        raise AssertionError("the staged merge disagrees with merge_device")
+    prefix = (args[0][:PLAIN_PREFIX], args[1][:PLAIN_PREFIX], *args[2:])
+    a_k, mb_k = kernel.substream_match_packed(*prefix)
+    t0 = time.perf_counter()
+    a_p, mb_p = kernel.substream_match_packed_plain(*prefix)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = _compare(a_k, mb_k, a_p, mb_p)
+    plan = device_plan(cfg.n, 1)
+    bound_ms, bound_by = bound(r, plan.n_pad, plan.width)
+    shares = window_share(args[0])
+    emit("merge_device", m=stream.num_edges, recorded_edges=r, matched_edges=int(idx.size),
+         equal_to_merge_host=True, launches=launches, row_bytes=plan.width,
+         seconds={"merge_device_call": call_s, "merge_device_call_again": again_s,
+                  "merge_host": main["merge_host_s"],
+                  "order": order_ms / 1e3, "operands": operands_ms / 1e3,
+                  "kernel_L1": kernel_ms / 1e3, "kernel_L1_runs": [t / 1e3 for t in runs],
+                  "scatter": scatter_ms / 1e3},
+         ns_per_recorded_edge_kernel=kernel_ms * 1e6 / max(r, 1),
+         host_over_device=main["merge_host_s"] / call_s, window_share=shares,
+         kernel_L1_vs_plain={"m": int(prefix[0].shape[0]), "max_abs_err": err,
+                             "plain_ms": plain_s * 1e3},
+         bound_ms_L1=bound_ms, bound_by_L1=bound_by)
+    if err:
+        raise AssertionError(f"the L = 1 kernel differs from its plain version: {err}")
+    return {"launches": launches[kernel.NAME], "recorded_edges": r, "ms": kernel_ms,
+            "max_abs_err": err}
+
+
+def phase_main_telemetry(config, stream, cfg, main):
+    """The main path again with an enabled ``Telemetry``: the same matching,
+    one ``kernel_edges`` record whose stage split holds together, its
+    roofline, and the pipeline's time beside the main path's (telemetry
+    off)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import mwm_pipeline
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+
+    tel = obs.Telemetry()
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    idx, weight = mwm_pipeline(stream, cfg, part1="kernel", K=config.K, telemetry=tel)
+    pipeline_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    if launches.get(kernel.NAME, 0) < 1:
+        raise AssertionError(f"the telemetry run launched no {kernel.NAME}: {launches}")
+    if not (np.array_equal(idx, main["idx"]) and weight == main["weight"]):
+        raise AssertionError("the main path with telemetry differs from the one without")
+    rec, = tel.match_calls
+    problems = obs.consistency_problems(rec.stage_seconds, rec.wall_seconds)
+    roofline = {k: v for k, v in rec.roofline().items() if v != float("inf")}  # JSON has no inf
+    emit("main_path_telemetry", record=rec.asdict(), roofline=roofline,
+         consistency_problems=problems, events=tel.events,
+         pipeline_seconds={"telemetry_on": pipeline_s, "telemetry_off": main["pipeline_s"]},
+         launches=launches)
+    if problems or rec.backend != stream.device.type or rec.engine != "kernel_edges":
+        raise AssertionError(f"telemetry record: {rec.engine} {rec.backend} {problems}")
+
+
+def phase_validate(stream, cfg):
+    """``validate_stream`` at full size in both modes, on the clean paper
+    stream (it must pass untouched) and on a copy with two NaN weights and
+    two ids on the sacrificial row (strict names exactly those; sanitize
+    drops exactly those, nothing else changes)."""
+    import torch
+
+    from repro_torch.core import StreamValidationError, validate_stream
+    from repro_torch.testing import faultline
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    seconds = {}
+    for policy in ("strict", "sanitize"):
+        seconds[f"clean_{policy}"], (out, report) = timed(
+            lambda: validate_stream(stream, cfg.n, policy=policy))
+        if out is not stream or not report.ok or report.num_valid_in != stream.num_edges:
+            raise AssertionError(f"{policy} changed a clean stream: {report}")
+    m = stream.num_edges
+    t0 = time.perf_counter()
+    dirty, w_fault = faultline.poison_weights(stream, (1, m // 3), "nan")
+    dirty, id_fault = faultline.poison_ids(dirty, cfg.n, (m // 2, m - 1), "sacrificial")
+    torch.cuda.synchronize()
+    seconds["poison_copy_setup"] = time.perf_counter() - t0
+    want = {w_fault.kind: w_fault.positions, id_fault.kind: id_fault.positions}
+
+    def strict():
+        try:
+            validate_stream(dirty, cfg.n, policy="strict")
+        except StreamValidationError as err:
+            return err
+        raise AssertionError("strict let a poisoned stream through")
+
+    seconds["poisoned_strict"], err = timed(strict)
+    got = {p.kind: p.indices for p in err.problems}
+    if got != want:
+        raise AssertionError(f"strict named {got}, planted {want}")
+    seconds["poisoned_sanitize"], (clean, report) = timed(
+        lambda: validate_stream(dirty, cfg.n, policy="sanitize"))
+    dropped = torch.nonzero(~clean.valid).flatten().tolist()
+    keep = clean.valid
+    same = all(torch.equal(a[keep], b[keep]) for a, b in
+               ((clean.src, stream.src), (clean.dst, stream.dst), (clean.weight, stream.weight)))
+    if report.num_dropped != 4 or sorted(dropped) != sorted((1, m // 3, m // 2, m - 1)) or not same:
+        raise AssertionError(f"sanitize dropped {dropped} ({report.num_dropped})")
+    emit("validate", m=m, n=cfg.n, seconds=seconds, planted=want, strict_message=str(err)[:300],
+         sanitize_report=report.counters())
+
+
+def phase_fallback():
+    """The fallback ladder on the card, both layouts. On the card it holds
+    only kernel rungs and steps down only on a plan refusal, raised before
+    any launch. At scale 16 in generated order (one host schedule, passed
+    to every call): clean (no fallback, the asked kernel launched once), the
+    mega rung refused once (mega[seg_block=1] delivers), the mega rungs
+    refused (the waves kernel delivers), and with nothing left for mega,
+    waves and edges: FallbackExhaustedError naming every kernel rung and no
+    launch. A failure that is no refusal (an injected launch error)
+    propagates with no fallback event. At L = 2049 every kernel rung
+    refuses the row before a launch and the ladder is exhausted. Every
+    result equals the clean one-shot run bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs.paper_matching import CONFIG
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import (
+        FallbackExhaustedError, PlanRefusedError, resolve_stream_schedule, substream_match,
+    )
+    from repro_torch.testing import faultline
+    from repro_torch.testing.cases import rmat_case
+
+    def name_of(schedule, packed):
+        names = {("edges", True): kernel.NAME, ("edges", False): kernel.UNPACKED_NAME,
+                 ("mega", True): kernel.MEGA_NAME, ("mega", False): kernel.MEGA_UNPACKED_NAME,
+                 ("waves", True): kernel.WAVES_NAME, ("waves", False): kernel.WAVES_UNPACKED_NAME}
+        return names[schedule, packed]
+
+    def ladder(stream, cfg, want, schedule, packed, inject, waves=None):
+        tel = obs.Telemetry()
+        torch.cuda.synchronize()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        try:
+            with inject:
+                res = substream_match(stream, cfg, schedule=schedule, packed=packed, waves=waves,
+                                      on_plan_failure="fallback", telemetry=tel)
+            torch.cuda.synchronize()
+            outcome = "equal" if (torch.equal(res.assigned, want.assigned)
+                                  and torch.equal(res.mb, want.mb)) else "DIFFERS"
+        except FallbackExhaustedError as err:
+            outcome = "exhausted: " + ", ".join(label for label, _ in err.attempts)
+        except faultline.InjectedFailure as err:
+            outcome = f"raised: {type(err).__name__}"
+        events = [e for e in tel.events if e["name"] == "fallback"]
+        return {"seconds": time.perf_counter() - t0, "outcome": outcome,
+                "fallback_count": tel.counters.get("fallback.count"),
+                "rungs_failed": [e["from_engine"] for e in events],
+                "records": [r.engine for r in tel.match_calls],
+                "reasons": sorted({e["reason"][:80] for e in events}),
+                "launches": dict(build.launches)}
+
+    def refused(*targets):
+        return faultline.failing(*targets, exc_type=PlanRefusedError)
+
+    small16 = dataclasses.replace(CONFIG, scale=BLOCKED_WAVE_SCALE)
+    _, stream, cfg, gen_s, _ = paper_stream(small16)
+    sch = resolve_stream_schedule(stream)
+    results, problems = {}, []
+    for packed in (True, False):
+        layout = "packed" if packed else "unpacked"
+        want = substream_match(stream, cfg, packed=packed)
+        mega, waves_k, edges_k = (name_of(k, packed) for k in ("mega", "waves", "edges"))
+        runs = {  # schedule, injection, fallback events, outcome, launches
+            "mega_clean": ("mega", contextlib.nullcontext(), 0, "equal", {mega: 1}),
+            "mega_refused_once": ("mega", faultline.flaky("mega_device", times=1,
+                                                          exc_type=PlanRefusedError),
+                                  1, "equal", {mega: 1}),
+            "mega_refused": ("mega", refused("mega_device"), 2, "equal", {waves_k: 1}),
+            "mega_exhausted": ("mega", refused("mega_device", "waves_device"), 3,
+                               "exhausted: mega, mega[seg_block=1], waves", {}),
+            "mega_launch_error": ("mega", faultline.failing("mega_device"), 0,
+                                  "raised: InjectedFailure", {}),
+            "waves_clean": ("waves", contextlib.nullcontext(), 0, "equal", {waves_k: 1}),
+            "waves_exhausted": ("waves", refused("wave_plan"), 1, "exhausted: waves", {}),
+            "edges_clean": ("edges", contextlib.nullcontext(), 0, "equal", {edges_k: 1}),
+            "edges_exhausted": ("edges", refused("edges_device"), 1, "exhausted: edges", {}),
+        }
+        for label, (schedule, inject, n_events, outcome, launches) in runs.items():
+            out = ladder(stream, cfg, want, schedule, packed, inject,
+                         waves=None if schedule == "edges" else sch)
+            results[f"scale16_{layout}_{label}"] = out
+            if (out["outcome"] != outcome or out["fallback_count"] != n_events
+                    or out["launches"] != launches
+                    or {"waves_xla", "scan"} & set(out["records"])):
+                problems.append(f"scale16_{layout}_{label}: {out}")
+    wide = rmat_case(7, edge_factor=4, L=2049, eps=0.002, seed=9)
+    wide_stream, wide_cfg, _ = _on_card(wide)
+    wide_exhausted = {"edges": "edges", "waves": "waves",
+                      "mega": "mega, mega[seg_block=1], waves"}
+    for packed in (True, False):
+        layout = "packed" if packed else "unpacked"
+        for schedule, rungs in wide_exhausted.items():
+            out = ladder(wide_stream, wide_cfg, None, schedule, packed, contextlib.nullcontext())
+            results[f"L2049_{layout}_{schedule}"] = out
+            if (out["outcome"] != f"exhausted: {rungs}" or out["launches"]
+                    or out["fallback_count"] != rungs.count(",") + 1
+                    or not all("width" in r for r in out["reasons"])):
+                problems.append(f"L2049_{layout}_{schedule}: {out}")
+    emit("fallback_ladder", scale=BLOCKED_WAVE_SCALE, m=stream.num_edges, generate_host_seconds=gen_s,
+         wide_L=wide_cfg.L, wide_m=wide_stream.num_edges, runs=results)
+    if problems:
+        raise AssertionError("fallback ladder: " + "; ".join(problems))
+
+
+def phase_epoch_snapshots(cfg, unpacked, epoch_full):
+    """The epoch path at full size (blocked order, unpacked per-edge kernel,
+    4 epochs) with a ``SnapshotManager`` in a temporary directory: a run
+    with a snapshot per epoch (against ``epoch_path``'s run without), one
+    killed after epoch 2, and its resume from disk with one transient flake
+    in the kernel's seam retried by an ``ExecutionGuard``; then one killed
+    after epoch 2 while epoch 2's snapshot is still being written (the
+    power fails inside its commit, so that write is lost), whose resume
+    replays epochs 2 and 3; every finished run equal to the one-shot run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.checkpoint import SnapshotManager
+    from repro_torch.core import ExecutionGuard
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import epoch_bounds, match_epochs
+    from repro_torch.testing import faultline
+
+    blocked = unpacked["blocked"]
+    want_a, want_mb = unpacked["one_shot"]
+    kw = dict(epochs=4, engine="edges", packed=False)
+
+    def check(res, what):
+        if not (torch.equal(res.assigned, want_a) and torch.equal(res.mb, want_mb)):
+            raise AssertionError(f"{what} differs from the one-shot run")
+
+    def du(path):
+        return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snapshots_") as tmp:
+        build.launches.clear()
+        tel = obs.Telemetry()
+        t0 = time.perf_counter()
+        res = match_epochs(blocked, cfg, snapshots=SnapshotManager(f"{tmp}/full", keep=1,
+                                                                   telemetry=tel), **kw)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        check(res, "the snapshotted run")
+        full_launches = dict(build.launches)
+        save_spans = [e["dur"] / 1e6 for e in tel.tracer.events if e["name"] == "snapshot.save"]
+        snapshot_bytes = du(f"{tmp}/full")
+        t0 = time.perf_counter()
+        killed = False
+        run_snapshots = SnapshotManager(f"{tmp}/run", keep=0)
+        try:
+            match_epochs(blocked, cfg, snapshots=run_snapshots,
+                         epoch_hook=faultline.kill_at_epoch(2), **kw)
+        except faultline.SimulatedCrash:
+            killed = True
+        killed_s = time.perf_counter() - t0
+        run_snapshots.wait()  # the writes already queued land, as a live writer would finish them
+        committed = SnapshotManager(f"{tmp}/run").all_positions()
+        tel = obs.Telemetry()
+        guard = ExecutionGuard(retries=2, telemetry=tel)
+        build.launches.clear()
+        t0 = time.perf_counter()
+        with faultline.flaky("edges_device", times=1):
+            res = match_epochs(blocked, cfg, snapshots=SnapshotManager(f"{tmp}/run", telemetry=tel),
+                               guard=guard, telemetry=tel, **kw)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        check(res, "the resumed run")
+        resumed_launches = dict(build.launches)
+        restore_s = [e["dur"] / 1e6 for e in tel.tracer.events if e["name"] == "snapshot.restore"]
+        replayed = [e["epoch"] for e in tel.events if e["name"] == "epoch.index"]
+        retries = tel.counters.get("guard.retry")
+        lost = SnapshotManager(f"{tmp}/lost", keep=0)
+        commit, commits = lost.manager._commit, []
+
+        def power_fails_in_third_commit(tmp_dir, final):
+            commits.append(final)
+            if len(commits) == 3:
+                raise faultline.SimulatedCrash(f"killed mid-snapshot before rename of {tmp_dir}")
+            commit(tmp_dir, final)
+
+        lost.manager._commit = power_fails_in_third_commit
+        try:
+            match_epochs(blocked, cfg, snapshots=lost, epoch_hook=faultline.kill_at_epoch(2), **kw)
+        except faultline.SimulatedCrash:
+            pass
+        try:
+            lost.wait()  # the writer reaches the failed commit; the writes before it landed
+            write_lost = False
+        except faultline.SimulatedCrash:
+            write_lost = True
+        committed_lost = SnapshotManager(f"{tmp}/lost").all_positions()
+        tel = obs.Telemetry()
+        t0 = time.perf_counter()
+        res = match_epochs(blocked, cfg, snapshots=SnapshotManager(f"{tmp}/lost", telemetry=tel),
+                           telemetry=tel, **kw)
+        torch.cuda.synchronize()
+        lost_resumed_s = time.perf_counter() - t0
+        check(res, "the run resumed after a lost snapshot write")
+        replayed_lost = [e["epoch"] for e in tel.events if e["name"] == "epoch.index"]
+    bounds = epoch_bounds(blocked.num_edges, 4)
+    emit("epoch_snapshots", m=blocked.num_edges, epochs=4,
+         seconds={"with_snapshots": full_s, "without_snapshots": epoch_full["seconds"],
+                  "per_epoch_snapshot_cost": (full_s - epoch_full["seconds"]) / 4,
+                  "snapshot_save_enqueue": save_spans, "killed_run": killed_s,
+                  "resumed_run": resumed_s, "restore": restore_s,
+                  "resumed_after_lost_write": lost_resumed_s},
+         snapshot_dir_bytes=snapshot_bytes, committed_before_kill=committed,
+         replayed_epochs=replayed, guard_retries=retries, launches_full=full_launches,
+         launches_resumed=resumed_launches, lost_write=write_lost,
+         committed_before_lost_write=committed_lost, replayed_after_lost_write=replayed_lost,
+         equal_to_one_shot=True)
+    if not killed or committed != bounds[1:4] or replayed != [3] or retries != 1:
+        raise AssertionError(f"snapshots: killed={killed} committed={committed} "
+                             f"replayed={replayed} retries={retries}")
+    if not write_lost or committed_lost != bounds[1:3] or replayed_lost != [2, 3]:
+        raise AssertionError(f"lost snapshot write: lost={write_lost} committed={committed_lost} "
+                             f"replayed={replayed_lost}")
+    if full_launches.get(kernel.UNPACKED_NAME) != 4 or resumed_launches.get(kernel.UNPACKED_NAME) != 1:
+        raise AssertionError(f"epoch launches {full_launches} / {resumed_launches}")
 
 
 def main():
@@ -1005,12 +1431,18 @@ def main():
     wave, sch, mega_result = phase_wave_path(config, stream, cfg)
     unpacked_checks = phase_unpacked_kernels_vs_plain(stream, cfg, config.K)
     unpacked = phase_unpacked_main_path(config, stream, cfg, main)
-    del main["result"]
     unpacked_wave = phase_unpacked_wave_path(config, stream, cfg, sch, mega_result)
     del sch, mega_result
-    phase_epoch_path(cfg, unpacked)
-    del stream, unpacked["blocked"], unpacked["one_shot"]
+    epoch_full = phase_epoch_path(cfg, unpacked)
+    phase_epoch_snapshots(cfg, unpacked, epoch_full)
+    del unpacked["blocked"], unpacked["one_shot"]
+    merge = phase_merge_device(stream, cfg, main)
+    phase_main_telemetry(config, stream, cfg, main)
+    del main["result"]
+    phase_validate(stream, cfg)
+    del stream
     phase_blocked_wave_route(config.K)
+    phase_fallback()
     source = "src/repro_torch/kernels/substream_match/csrc/"
     rows = [{
         "name": kernel.NAME,
@@ -1018,7 +1450,7 @@ def main():
         "source": source + "substream_match_edges.cu",
         "replaces": "src/repro/kernels/substream_match/kernel.py:117",
         "launches": main["launches"],
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, merge["max_abs_err"]),
         "ms": main["ms"],
         "plain_ms": timed["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -1028,7 +1460,10 @@ def main():
         "plain_m": PLAIN_PREFIX,
         "ms_at_plain_m": timed["ms_at_plain_m"],
         "bound_ms_at_plain_m": timed["bound_ms_at_plain_m"],
-        "matched_plain": max_err == 0,
+        "matched_plain": max_err == 0 and merge["max_abs_err"] == 0,
+        "launches_merge_device": merge["launches"],
+        "merge_device_recorded_edges": merge["recorded_edges"],
+        "merge_device_ms_L1": merge["ms"],
     }]
     for name, line in ((kernel.MEGA_NAME, 519), (kernel.WAVES_NAME, 243)):
         err, t = wave_checks[name]

@@ -1,5 +1,19 @@
-"""Resume support: the structured errors of a carried state that does not
-belong to, or does not hold together for, the run it is handed to."""
-from repro_torch.checkpoint.snapshots import SnapshotCorruptError, SnapshotMismatchError
+"""Crash-safe checkpoints of the port: the numpy checkpoint manager, the
+:class:`~repro_torch.core.state.MatchState` snapshots of the epoch
+executor, and their structured errors. The layout on disk is the JAX
+package's."""
+from repro_torch.checkpoint.manager import CheckpointManager, load_pytree, save_pytree
+from repro_torch.checkpoint.snapshots import (
+    SnapshotCorruptError,
+    SnapshotManager,
+    SnapshotMismatchError,
+)
 
-__all__ = ["SnapshotCorruptError", "SnapshotMismatchError"]
+__all__ = [
+    "CheckpointManager",
+    "save_pytree",
+    "load_pytree",
+    "SnapshotManager",
+    "SnapshotMismatchError",
+    "SnapshotCorruptError",
+]

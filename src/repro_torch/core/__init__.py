@@ -5,10 +5,14 @@ Public API:
   mwm_scan              — faithful Listing 1 Part 1 (CS-SEQ oracle)
   mwm_waves             — the same over conflict-free waves (plain oracle)
   mwm_blocked           — Listing 2 blocked/lexicographic (SC-OPT path)
-  merge_host            — Part 2 greedy merge
+  merge_host            — Part 2 greedy merge on the host (on the card:
+                          repro_torch.kernels.substream_match.ops.merge_device)
   exact_mwm_weight      — networkx oracle (tests)
   mwm_pipeline          — end to end: Part 1 + Part 2 → matching + weight
-  check_matching        — result invariants (repro_torch.core.guard)
+  validate_stream / check_matching — input guard + result invariants
+                          (strict / sanitize / off, repro_torch.core.guard)
+  MatchState            — resumable per-stream-position state (repro_torch.core.state)
+  ExecutionGuard        — deadline/retry/straggler guard (repro_torch.core.executor)
 """
 from __future__ import annotations
 
@@ -22,10 +26,20 @@ from repro_torch.core.types import (
 from repro_torch.core.guard import (
     MatchingInvariantError,
     StreamValidationError,
+    ValidationReport,
     check_matching,
     matching_problems,
+    stream_problems,
+    validate_stream,
+)
+from repro_torch.core.executor import (
+    DeadlineExceededError,
+    ExecutionGuard,
+    RetriesExhaustedError,
+    is_transient,
 )
 from repro_torch.core.matching import mwm_scan, mwm_waves
+from repro_torch.core.state import MatchState, fingerprint_for
 from repro_torch.core.blocked import mwm_blocked, lexicographic_order, permute_stream
 from repro_torch.core.merge import merge_host, matching_weight
 from repro_torch.core.exact import exact_mwm_weight
@@ -75,10 +89,13 @@ __all__ = [
     "pack_bits",
     "packed_width",
     "unpack_bits",
+    "validate_stream",
+    "stream_problems",
     "check_matching",
     "matching_problems",
     "StreamValidationError",
     "MatchingInvariantError",
+    "ValidationReport",
     "mwm_scan",
     "mwm_waves",
     "mwm_blocked",
@@ -88,4 +105,10 @@ __all__ = [
     "matching_weight",
     "exact_mwm_weight",
     "mwm_pipeline",
+    "MatchState",
+    "fingerprint_for",
+    "ExecutionGuard",
+    "DeadlineExceededError",
+    "RetriesExhaustedError",
+    "is_transient",
 ]

@@ -1,9 +1,11 @@
-"""Guard between edge streams and the matching core: the structured input
-faults that :meth:`EdgeStream.from_numpy` reports, and the postcondition
-check of a Part-1 result.
+"""Guard between edge streams and the matching core: input validation
+and the postcondition check of a Part-1 result.
 
-* :class:`StreamProblem` / :class:`StreamValidationError`: one class of
-  input fault with its count and sample stream positions;
+* :func:`validate_stream` / :func:`stream_problems`: the precondition
+  check with three policies: ``strict`` (raise a structured
+  :class:`StreamValidationError` listing the offending stream positions),
+  ``sanitize`` (drop the bad edges, report what was dropped through
+  telemetry counters) and ``off`` (no check at all, for trusted paths);
 * :func:`check_matching` / :func:`matching_problems`: check a
   :class:`~repro_torch.core.types.MatchingResult` against the stream it
   claims to describe: recorded edges exist, are eligible for their
@@ -11,16 +13,27 @@ check of a Part-1 result.
   matching bits agree with the recorded lists, and (optionally) the
   merged set is a matching within the (4+eps) bound of an exact optimum.
 
-Everything here is host numpy. The eligibility check reads the
-thresholds from ``cfg``, the very vector the engines used.
+The stream checks run in torch on the stream's own device: only the
+counts and the first :data:`MAX_REPORT_INDICES` offending positions of
+each fault come to the host. The postcondition check is host numpy; its
+eligibility check reads the thresholds from ``cfg``, the very vector the
+engines used. The fallback cascade that consumes these guards lives in
+:mod:`repro_torch.kernels.substream_match.ops` (``on_plan_failure=``);
+the fault injector that proves they fire lives in
+:mod:`repro_torch.testing.faultline`.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
-from repro_torch.core.types import to_numpy
+from repro_torch import obs
+from repro_torch.core.types import EdgeStream, to_numpy
+
+#: Accepted validation policies, in decreasing strictness.
+POLICIES = ("strict", "sanitize", "off")
 
 #: How many offending stream positions a problem reports (the count is
 #: always exact; the index list is a sample so errors stay readable on
@@ -76,14 +89,181 @@ class MatchingInvariantError(ValueError):
         )
 
 
-def _problem(kind: str, mask: np.ndarray, detail: str = "") -> StreamProblem:
-    idx = np.nonzero(mask)[0]
-    return StreamProblem(
-        kind=kind,
-        count=int(idx.size),
-        indices=tuple(int(i) for i in idx[:MAX_REPORT_INDICES]),
-        detail=detail,
+@dataclasses.dataclass(frozen=True)
+class ValidationReport:
+    """What :func:`validate_stream` saw (and, under ``sanitize``, did).
+
+    ``num_valid_in`` counts the valid edges before the policy ran,
+    ``num_dropped`` how many of them ``sanitize`` masked out (always 0
+    under ``strict``/``off``: strict raises instead of dropping).
+    """
+
+    policy: str
+    n: int
+    num_edges: int
+    num_valid_in: int
+    num_dropped: int
+    problems: tuple = ()
+
+    @property
+    def ok(self) -> bool:
+        return not self.problems
+
+    @property
+    def degenerate(self) -> bool:
+        """True when nothing can ever match (no valid edges, or n < 2)."""
+        return self.num_valid_in - self.num_dropped == 0 or self.n < 2
+
+    def counters(self) -> dict:
+        """The ``guard.*`` counter set (telemetry)."""
+        out = {
+            "guard.num_edges": int(self.num_edges),
+            "guard.num_valid_in": int(self.num_valid_in),
+            "guard.dropped_edges": int(self.num_dropped),
+            "guard.num_problems": int(len(self.problems)),
+        }
+        for p in self.problems:
+            out[f"guard.fault.{p.kind}"] = int(p.count)
+        return out
+
+
+def _problem(kind: str, mask, detail: str = "") -> StreamProblem:
+    """A problem from a bool mask over the stream (numpy or torch): the
+    exact count, and only the first :data:`MAX_REPORT_INDICES` positions
+    copied to the host."""
+    if isinstance(mask, torch.Tensor):
+        count = int(mask.sum())
+        idx = torch.nonzero(mask).flatten()[:MAX_REPORT_INDICES].tolist()
+    else:
+        where = np.nonzero(mask)[0]
+        count, idx = int(where.size), where[:MAX_REPORT_INDICES].tolist()
+    return StreamProblem(kind=kind, count=count, indices=tuple(int(i) for i in idx),
+                         detail=detail)
+
+
+def _as_tensor(x, device=None):
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(np.asarray(x), device=device)
+
+
+def _bad_masks(src, dst, weight, valid, n: int):
+    """(bad id, non-finite weight, negative weight) masks over the valid edges."""
+    bad_id = valid & ((src < 0) | (src >= n) | (dst < 0) | (dst >= n))
+    finite = torch.isfinite(weight)
+    return bad_id, valid & ~finite, valid & finite & (weight < 0)
+
+
+def stream_problems(src, dst, weight, valid, n: int) -> list[StreamProblem]:
+    """Pure fault detector: stream arrays in (tensors on any device, or
+    array-likes), :class:`StreamProblem` list out.
+
+    Only *valid* (non-padding) edges are examined: padding edges are a
+    legitimate encoding, whatever their slots hold. Checks, in taxonomy
+    order:
+
+    * ``empty_vertex_space``: valid edges exist but ``n < 1``;
+    * ``id_out_of_range``: an endpoint outside ``[0, n)``, which covers
+      negative ids, ids at or past ``n``, and the sacrificial padding row
+      ``n_pad`` the wave kernels point padding slots at (a real edge
+      there would alias it);
+    * ``nonfinite_weight``: NaN or ±Inf (+Inf matches *every* substream;
+      NaN silently never matches; both void the (2+eps) analysis);
+    * ``negative_weight``: finite ``w < 0``.
+    """
+    valid = _as_tensor(valid).to(torch.bool)
+    dev = valid.device
+    src, dst, weight = (_as_tensor(x, dev) for x in (src, dst, weight))
+    problems: list[StreamProblem] = []
+    if not bool(valid.any()):
+        return problems
+    if n < 1:
+        problems.append(_problem("empty_vertex_space", valid, detail=f"n = {n}"))
+        return problems
+    bad_id, nonfinite, negative = _bad_masks(src, dst, weight, valid, n)
+    if bool(bad_id.any()):
+        problems.append(
+            _problem("id_out_of_range", bad_id, detail=f"ids must be in [0, {n})")
+        )
+    if bool(nonfinite.any()):
+        problems.append(_problem("nonfinite_weight", nonfinite))
+    if bool(negative.any()):
+        problems.append(_problem("negative_weight", negative))
+    return problems
+
+
+def validate_stream(stream, n: int, policy: str = "strict", telemetry=obs.DISABLED):
+    """Validate (and under ``sanitize`` repair) an edge stream for ``n`` vertices.
+
+    Returns ``(stream, report)``:
+
+    * ``policy="off"``: no checks at all (the returned stream *is* the
+      input, the report is empty);
+    * ``policy="strict"``: raise :class:`StreamValidationError` naming
+      every fault kind with counts and sample stream positions; the
+      stream passes through untouched when clean;
+    * ``policy="sanitize"``: mask every faulty edge out of ``valid`` and
+      zero its slots, as padding is encoded (dropping, never clamping: a
+      clamped id or weight would silently change which edges can match),
+      on the stream's device; report what was dropped via the ``guard.*``
+      telemetry counters and a ``guard.sanitize`` event.
+    """
+    if policy not in POLICIES:
+        raise ValueError(f"unknown validation policy {policy!r}; use one of {POLICIES}")
+    m = stream.num_edges
+    if policy == "off":
+        return stream, ValidationReport(
+            policy=policy, n=n, num_edges=m, num_valid_in=-1, num_dropped=0
+        )
+    with telemetry.span("guard.validate", policy=policy):
+        valid = stream.valid.to(torch.bool)
+        num_valid_in = int(valid.sum())
+        problems = stream_problems(stream.src, stream.dst, stream.weight, valid, n)
+    if telemetry.enabled:
+        telemetry.counters.add("guard.validate.calls")
+    if not problems:
+        report = ValidationReport(
+            policy=policy, n=n, num_edges=m, num_valid_in=num_valid_in, num_dropped=0,
+        )
+        if telemetry.enabled:
+            telemetry.counters.update(report.counters())
+        return stream, report
+    if policy == "strict":
+        if telemetry.enabled:
+            telemetry.event(
+                "guard.reject",
+                policy=policy,
+                kinds=[p.kind for p in problems],
+                bad_edges=sum(p.count for p in problems),
+            )
+            telemetry.counters.add("guard.rejected_streams")
+        raise StreamValidationError(problems, n=n)
+
+    # sanitize: drop every faulty edge (valid=False) and zero its slots, so
+    # downstream paths see the same benign encoding padding uses
+    if n < 1:
+        bad = valid
+    else:
+        bad_id, nonfinite, negative = _bad_masks(stream.src, stream.dst, stream.weight, valid, n)
+        bad = bad_id | nonfinite | negative
+    clean = EdgeStream(
+        src=torch.where(bad, 0, stream.src).to(torch.int32),
+        dst=torch.where(bad, 0, stream.dst).to(torch.int32),
+        weight=torch.where(bad, 0.0, stream.weight).to(torch.float32),
+        valid=valid & ~bad,
     )
+    report = ValidationReport(
+        policy=policy, n=n, num_edges=m, num_valid_in=num_valid_in,
+        num_dropped=int(bad.sum()), problems=tuple(problems),
+    )
+    if telemetry.enabled:
+        telemetry.counters.update(report.counters())
+        telemetry.event(
+            "guard.sanitize",
+            dropped=report.num_dropped,
+            kinds=[p.kind for p in problems],
+        )
+    return clean, report
 
 
 def matching_problems(
@@ -226,11 +406,21 @@ def matching_problems(
     return problems
 
 
-def check_matching(result, stream, cfg, merged=None, exact_weight=None) -> None:
+def check_matching(
+    result, stream, cfg, merged=None, exact_weight=None, telemetry=obs.DISABLED
+) -> None:
     """Raise :class:`MatchingInvariantError` unless every postcondition of
-    :func:`matching_problems` holds."""
-    problems = matching_problems(
-        result, stream, cfg, merged=merged, exact_weight=exact_weight
-    )
+    :func:`matching_problems` holds. Records one ``guard.check_matching``
+    span and the ``guard.invariant_violations`` counter when telemetry is
+    enabled."""
+    with telemetry.span("guard.check_matching"):
+        problems = matching_problems(
+            result, stream, cfg, merged=merged, exact_weight=exact_weight
+        )
+    if telemetry.enabled:
+        telemetry.counters.add("guard.check_matching.calls")
+        if problems:
+            telemetry.counters.add("guard.invariant_violations", len(problems))
+            telemetry.event("guard.invariant_violation", problems=problems)
     if problems:
         raise MatchingInvariantError(problems)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.types import MatchingResult, SubstreamConfig, resolve_device, to_numpy
 
 
@@ -99,6 +100,7 @@ def mwm_waves(
     max_width: int | None = None,
     mb0: torch.Tensor | None = None,
     device=None,
+    telemetry=obs.DISABLED,
 ) -> MatchingResult:
     """Listing 1 Part 1 over conflict-free waves (the JAX package's
     waves_xla engine), one segment per loop step.
@@ -108,6 +110,9 @@ def mwm_waves(
     vertex-disjoint segment at a time: bit-identical to :func:`mwm_scan`
     in ``assigned`` and ``mb``, because greedy matching is confluent over
     vertex-disjoint edges. ``mb0`` (bool [n, L]) seeds the matching bits.
+    ``telemetry`` records the stage split of the kernel engines under the
+    engine name ``waves_xla`` (its device stage is always ``execute``:
+    plain torch builds nothing).
     """
     from repro_torch.graph import waves as _waves
 
@@ -118,20 +123,39 @@ def mwm_waves(
             assigned=torch.full((stream.num_edges,), -1, dtype=torch.int32, device=dev),
             mb=torch.zeros((0, cfg.L), dtype=torch.bool, device=dev),
         )
+    rec = obs.recorder(telemetry, "waves_xla", stream.num_edges, dev.type)
     src, dst, weight, valid = (
         to_numpy(t) for t in (stream.src, stream.dst, stream.weight, stream.valid)
     )
-    schedule = _waves.resolve_schedule(src, dst, valid, schedule=schedule, max_width=max_width)
-    u, v, w, ok = (
-        torch.from_numpy(a).to(dev) for a in _waves.slot_arrays(schedule, src, dst, weight, valid)
-    )
-    mb = (
-        torch.zeros((cfg.n, cfg.L), dtype=torch.bool, device=dev)
-        if mb0 is None
-        else mb0.to(device=dev, dtype=torch.bool).clone()
-    )
-    idx = _wave_scan(u.long(), v.long(), w, ok, torch.tensor(cfg.thresholds(), device=dev), mb)
-    slots = torch.from_numpy(schedule.slots).to(dev)
-    return MatchingResult(
-        assigned=_waves.scatter_slot_assignments(slots, idx, stream.num_edges), mb=mb
-    )
+    if schedule is None:
+        schedule = _waves.resolve_schedule(
+            src, dst, valid, max_width=max_width, telemetry=telemetry
+        )
+        rec.add_stage("schedule", schedule.schedule_seconds)
+        rec.add_stage("pack", schedule.pack_seconds)
+    else:
+        with rec.stage("schedule"):  # precomputed: validation cost only
+            schedule = _waves.resolve_schedule(
+                src, dst, valid, schedule=schedule, max_width=max_width, telemetry=telemetry
+            )
+    with rec.stage("layout"):
+        u, v, w, ok = (
+            torch.from_numpy(a).to(dev)
+            for a in _waves.slot_arrays(schedule, src, dst, weight, valid)
+        )
+    if telemetry.enabled:
+        rec.put_many(_waves.schedule_counters(schedule))
+        rec.put("stream.num_edges", stream.num_edges)
+    with rec.device_stage():
+        mb = (
+            torch.zeros((cfg.n, cfg.L), dtype=torch.bool, device=dev)
+            if mb0 is None
+            else mb0.to(device=dev, dtype=torch.bool).clone()
+        )
+        thr = torch.tensor(cfg.thresholds(), device=dev)
+        idx = _wave_scan(u.long(), v.long(), w, ok, thr, mb)
+        slots = torch.from_numpy(schedule.slots).to(dev)
+        assigned = _waves.scatter_slot_assignments(slots, idx, stream.num_edges)
+        rec.block((assigned, mb))
+    rec.finish()
+    return MatchingResult(assigned=assigned, mb=mb)

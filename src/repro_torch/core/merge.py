@@ -1,17 +1,27 @@
 """Part 2 (post processing): greedy merge of the L matchings into the MWM.
 
 The paper runs this on the CPU (<1 % of its time, little parallelism);
-so does this module, in numpy on host copies of the tensors.
+so does :func:`merge_host`, in numpy on host copies of the tensors.
+Merging in "descending i, then stream order" is itself a greedy maximal
+matching under the total priority order ``(L-1-i, position)``, so a
+one-substream Part 1 over the recorded edges in :func:`merge_order`
+computes it: that is
+:func:`repro_torch.kernels.substream_match.ops.merge_device`, the merge on
+the card, which lives beside Part 1's entry because it launches Part 1's
+kernel (the JAX package keeps its ``merge_device`` here, over ``mwm_scan``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch import obs
 from repro_torch.core.types import EdgeStream, MatchingResult, SubstreamConfig, to_numpy
 
 
 def merge_host(
-    stream: EdgeStream, result: MatchingResult, cfg: SubstreamConfig
+    stream: EdgeStream, result: MatchingResult, cfg: SubstreamConfig,
+    telemetry=obs.DISABLED,
 ) -> np.ndarray:
     """Faithful Listing 1 Part 2. Returns the sorted int64 stream indices of T.
 
@@ -21,23 +31,43 @@ def merge_host(
     stream-position minor key), then one greedy pass over those edges. The
     greedy pass is the dependency chain and stays a loop, like the paper's
     sequential post-processor.
+
+    ``telemetry`` records one ``merge.host`` span plus the recorded /
+    matched edge counters.
     """
-    assigned = to_numpy(result.assigned)
-    recorded = np.nonzero(assigned >= 0)[0]
-    if recorded.size == 0:
-        # empty / all-dropped streams: a well-formed empty T, skipping the
-        # n-sized allocation (n may be 0 here)
-        return np.zeros(0, dtype=np.int64)
-    order = recorded[np.argsort(cfg.L - 1 - assigned[recorded], kind="stable")]
-    src = to_numpy(stream.src)[order].tolist()
-    dst = to_numpy(stream.dst)[order].tolist()
-    tbits = bytearray(cfg.n)
-    out = []
-    for e, u, v in zip(order.tolist(), src, dst):
-        if not tbits[u] and not tbits[v]:
-            tbits[u] = tbits[v] = 1
-            out.append(e)
-    return np.sort(np.asarray(out, dtype=np.int64))
+    with telemetry.span("merge.host"):
+        assigned = to_numpy(result.assigned)
+        recorded = np.nonzero(assigned >= 0)[0]
+        if recorded.size == 0:
+            # empty / all-dropped streams: a well-formed empty T, skipping the
+            # n-sized allocation (n may be 0 here)
+            merged = np.zeros(0, dtype=np.int64)
+        else:
+            order = recorded[np.argsort(cfg.L - 1 - assigned[recorded], kind="stable")]
+            src = to_numpy(stream.src)[order].tolist()
+            dst = to_numpy(stream.dst)[order].tolist()
+            tbits = bytearray(cfg.n)
+            out = []
+            for e, u, v in zip(order.tolist(), src, dst):
+                if not tbits[u] and not tbits[v]:
+                    tbits[u] = tbits[v] = 1
+                    out.append(e)
+            merged = np.sort(np.asarray(out, dtype=np.int64))
+    if telemetry.enabled:
+        telemetry.counters.add("merge.host.calls")
+        telemetry.counters.put("merge.recorded_edges", int(recorded.size))
+        telemetry.counters.put("merge.matched_edges", int(merged.size))
+    return merged
+
+
+def merge_order(result: MatchingResult, cfg: SubstreamConfig) -> torch.Tensor:
+    """int64 stream positions of the R recorded edges in merge order:
+    descending substream, then stream position (one stable sort of the
+    recorded positions, ascending already, by ``L-1-assigned``)."""
+    assigned = result.assigned
+    recorded = torch.nonzero(assigned >= 0).flatten()
+    _, perm = torch.sort((cfg.L - 1) - assigned[recorded], stable=True)
+    return recorded[perm]
 
 
 def matching_weight(stream: EdgeStream, edge_idx: np.ndarray) -> float:

@@ -45,16 +45,18 @@ This module is pure scheduling — numpy in, numpy out, no dependency on
 (`repro_torch.kernels.substream_match`) share one schedule. Schedules
 are reusable across `L`/`eps` sweeps because they depend only on the
 edge endpoints and order. It is the JAX package's
-``repro.graph.waves``, array for array: the port keeps its own copy
-because that module imports the JAX package's telemetry.
+``repro.graph.waves``, array for array, telemetry spans and counters
+included (:mod:`repro_torch.obs`): the port keeps its own copy because
+it imports nothing of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 #: Slots per segment — the row width of ``WaveSchedule.slots`` and the
 #: trip unit of every vectorized consumer. Waves are padded only up to
@@ -238,6 +240,7 @@ def wave_schedule(
     order=None,
     max_width: int | None = None,
     seg: int = SEG,
+    telemetry=obs.DISABLED,
 ) -> WaveSchedule:
     """Decompose a stream into vertex-disjoint, fill-packed waves.
 
@@ -253,8 +256,12 @@ def wave_schedule(
     Either way every edge is placed at or past its conflict depth, so
     any two edges sharing a vertex land in distinct waves in processing
     order while independent edges pack together. ``seg`` is the slot
-    width of the packed layout (see :data:`SEG`). ``schedule_seconds``
-    and ``pack_seconds`` time the two host phases.
+    width of the packed layout (see :data:`SEG`).
+
+    ``telemetry`` records the two host phases as spans
+    (``wave_schedule.assign`` / ``wave_schedule.pack``) plus the schedule
+    geometry counters; ``schedule_seconds`` / ``pack_seconds`` hold the
+    *same* stopwatch measurements, so there is one timing path either way.
     """
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
@@ -271,48 +278,51 @@ def wave_schedule(
     positions = np.arange(m) if order is None else np.asarray(order, dtype=np.int64)
     positions = positions[valid_np[positions]]
 
-    t0 = time.perf_counter()
-    su = src[positions]
-    sv = dst[positions]
-    if max_width is None:
-        wave_of_rank = _assign_depth_batched(su, sv)
-    else:
-        wave_of_rank = _assign_earliest_fit(su, sv, max_width)
-    wave = np.full(m, -1, dtype=np.int64)
-    wave[positions] = wave_of_rank
+    with obs.stopwatch(telemetry, "wave_schedule.assign") as sw_assign:
+        su = src[positions]
+        sv = dst[positions]
+        if max_width is None:
+            wave_of_rank = _assign_depth_batched(su, sv)
+        else:
+            wave_of_rank = _assign_earliest_fit(su, sv, max_width)
+        wave = np.full(m, -1, dtype=np.int64)
+        wave[positions] = wave_of_rank
 
-    t1 = time.perf_counter()
-    num_waves = int(wave_of_rank.max()) + 1 if wave_of_rank.size else 0
-    scheduled = np.nonzero(wave >= 0)[0]
-    # wave-major, stream-position-minor: stable sort on the wave key alone
-    # (``scheduled`` is already ascending in stream position)
-    order_out = scheduled[np.argsort(wave[scheduled], kind="stable")]
-    counts = np.bincount(wave[scheduled], minlength=max(num_waves, 1))[:num_waves]
-    offsets = np.zeros(num_waves + 1, dtype=np.int64)
-    np.cumsum(counts, out=offsets[1:])
+    with obs.stopwatch(telemetry, "wave_schedule.pack") as sw_pack:
+        num_waves = int(wave_of_rank.max()) + 1 if wave_of_rank.size else 0
+        scheduled = np.nonzero(wave >= 0)[0]
+        # wave-major, stream-position-minor: stable sort on the wave key alone
+        # (``scheduled`` is already ascending in stream position)
+        order_out = scheduled[np.argsort(wave[scheduled], kind="stable")]
+        counts = np.bincount(wave[scheduled], minlength=max(num_waves, 1))[:num_waves]
+        offsets = np.zeros(num_waves + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
 
-    # fill-packed layout: wave k occupies ceil(counts[k] / seg) segment
-    # rows back-to-back; only its last row carries (< seg) padding
-    seg_counts = -(-counts // seg)
-    seg_offsets = np.zeros(num_waves + 1, dtype=np.int64)
-    np.cumsum(seg_counts, out=seg_offsets[1:])
-    num_segments = int(seg_offsets[-1])
-    slots = np.full((num_segments, seg), -1, dtype=np.int64)
-    if num_segments:
-        within = np.arange(len(order_out)) - np.repeat(offsets[:-1], counts)
-        row = np.repeat(seg_offsets[:-1], counts) + within // seg
-        slots[row, within % seg] = order_out
+        # fill-packed layout: wave k occupies ceil(counts[k] / seg) segment
+        # rows back-to-back; only its last row carries (< seg) padding
+        seg_counts = -(-counts // seg)
+        seg_offsets = np.zeros(num_waves + 1, dtype=np.int64)
+        np.cumsum(seg_counts, out=seg_offsets[1:])
+        num_segments = int(seg_offsets[-1])
+        slots = np.full((num_segments, seg), -1, dtype=np.int64)
+        if num_segments:
+            within = np.arange(len(order_out)) - np.repeat(offsets[:-1], counts)
+            row = np.repeat(seg_offsets[:-1], counts) + within // seg
+            slots[row, within % seg] = order_out
 
-    return WaveSchedule(
+    schedule = WaveSchedule(
         wave=wave.astype(np.int32),
         order=order_out.astype(np.int32),
         offsets=offsets.astype(np.int32),
         slots=slots.astype(np.int32),
         seg_offsets=seg_offsets.astype(np.int32),
         num_edges=m,
-        schedule_seconds=t1 - t0,
-        pack_seconds=time.perf_counter() - t1,
+        schedule_seconds=sw_assign.seconds,
+        pack_seconds=sw_pack.seconds,
     )
+    if telemetry.enabled:
+        telemetry.counters.update(schedule_counters(schedule))
+    return schedule
 
 
 def schedule_counters(schedule: WaveSchedule) -> dict:
@@ -427,15 +437,21 @@ def resolve_schedule(
     valid,
     schedule: WaveSchedule | None = None,
     max_width: int | None = None,
+    telemetry=obs.DISABLED,
 ) -> WaveSchedule:
     """Build a schedule for the stream, or validate a precomputed one.
 
     The single entry every wave consumer (`mwm_waves`, the CUDA wave
     path) goes through, so the validation rules stay in one place.
+    ``telemetry`` records the build (or validation) cost as
+    ``wave_schedule.*`` spans.
     """
     if schedule is None:
-        return wave_schedule(src, dst, valid=valid, max_width=max_width)
-    validate_schedule(schedule, src, dst, valid)
+        return wave_schedule(
+            src, dst, valid=valid, max_width=max_width, telemetry=telemetry
+        )
+    with telemetry.span("wave_schedule.validate"):
+        validate_schedule(schedule, src, dst, valid)
     return schedule
 
 

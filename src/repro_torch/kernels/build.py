@@ -80,3 +80,8 @@ def load_library(name: str, source: pathlib.Path) -> ctypes.CDLL:
     }
     _libraries[name] = lib
     return lib
+
+
+def loaded() -> frozenset:
+    """Names of the libraries this process has built or loaded."""
+    return frozenset(_libraries)

@@ -130,18 +130,25 @@ def _check(edges, weights, thresholds, n_pad, mb_init, packed=True):
     _check_ids(edges, n_pad - 1)
 
 
+class PlanRefusedError(ValueError):
+    """A run the card cannot take, refused before anything is launched: a
+    row wider than the kernels take (here), or a bit block and slot stream
+    larger than the card's free memory (``ops._slot_plan``). The one failure
+    that ``substream_match(on_plan_failure="fallback")`` absorbs on the
+    card; a build, launch or operand error propagates."""
+
+
 def _check_width(width: int, packed: bool):
     """Refuse, before a launch, a row width the card's kernels do not take:
-    the packed wave kernels' and every unpacked kernel's."""
-    if packed and (width % 8 or width > MAX_WIDTH):
-        raise ValueError(
-            f"row width {width} words: the kernels take multiples of 8 up to "
-            f"{MAX_WIDTH} (L <= {8 * MAX_WIDTH})"
-        )
-    if not packed and (width % 16 or width > MAX_UNPACKED_WIDTH):
-        raise ValueError(
-            f"row width {width} bytes: the kernels take multiples of 16 up to "
-            f"{MAX_UNPACKED_WIDTH} (L <= {MAX_UNPACKED_WIDTH})"
+    the packed wave kernels' and every unpacked kernel's. Too wide is a
+    :class:`PlanRefusedError`; misaligned is the caller's fault
+    (``ValueError``)."""
+    step, most, unit = (8, MAX_WIDTH, "words") if packed else (16, MAX_UNPACKED_WIDTH, "bytes")
+    if width % step or width > most:
+        err = PlanRefusedError if width > most else ValueError
+        raise err(
+            f"row width {width} {unit}: the kernels take multiples of {step} up to "
+            f"{most} (L <= {8 * MAX_WIDTH})"
         )
 
 
@@ -196,7 +203,8 @@ def substream_match_packed(
     Returns (assigned int32 [m], mb uint8 [n_pad, width]). ``mb_init``
     seeds the bit block instead of zeros. Raises ``ValueError`` on an
     operand of the wrong type, shape or device, on a vertex id outside
-    ``[0, n_pad)``, and on the card for ``width > MAX_WIDTH``.
+    ``[0, n_pad)``, and :class:`PlanRefusedError` on the card for
+    ``width > MAX_WIDTH``.
     """
     _check(edges, weights, thresholds, n_pad, mb_init)
     if edges.device.type == "cpu":
@@ -205,7 +213,7 @@ def substream_match_packed(
         raise ValueError(f"no kernel for device {edges.device}")
     width = thresholds.shape[1]
     if width > MAX_WIDTH:
-        raise ValueError(f"row width {width} words > {MAX_WIDTH} (L > {8 * MAX_WIDTH})")
+        raise PlanRefusedError(f"row width {width} words > {MAX_WIDTH} (L > {8 * MAX_WIDTH})")
     # the kernel moves whole 64-bit words: rows padded to 8 bytes, the pad kept at zero
     pitch = -(-width // 8) * 8
     mb = torch.zeros((n_pad, pitch), dtype=torch.uint8, device=edges.device)

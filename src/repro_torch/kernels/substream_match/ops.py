@@ -16,6 +16,18 @@ The bit block has two layouts (``SubstreamConfig.mb_layout``, or
 plans' VMEM budget, 128-lane padding and grid blocks have no
 counterpart: the wave kernels are one block that walks the whole slot
 stream.
+
+:func:`substream_match` and :func:`match_epochs` also take the robustness
+and observability layers of the JAX package: ``telemetry=``
+(:mod:`repro_torch.obs`), ``validate=``
+(:func:`repro_torch.core.guard.validate_stream`), ``on_plan_failure=``
+(the fallback ladder, :func:`_fallback_attempts`), and for the epochs
+``snapshots=`` (:class:`repro_torch.checkpoint.snapshots.SnapshotManager`)
+and ``guard=`` (:class:`repro_torch.core.executor.ExecutionGuard`).
+:func:`merge_device` is Part 2 on the card, a one-substream Part 1. The
+kernels are launched through the module-level seams :func:`_edges_device`,
+:func:`_waves_device` and :func:`_mega_device`, which
+:func:`repro_torch.testing.faultline.failing` patches.
 """
 from __future__ import annotations
 
@@ -24,9 +36,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.snapshots import SnapshotCorruptError, SnapshotMismatchError
 from repro_torch.core import bitpack
+from repro_torch.core import guard as _guard
 from repro_torch.core import matching as _matching
+from repro_torch.core.merge import merge_order
 from repro_torch.core.state import MatchState
 from repro_torch.core.types import (
     EdgeStream,
@@ -38,6 +53,7 @@ from repro_torch.core.types import (
 from repro_torch.graph import waves as _waves
 from repro_torch.kernels.substream_match import kernel as _kernel
 from repro_torch.kernels.substream_match import ref as _ref
+from repro_torch.kernels.substream_match.kernel import PlanRefusedError
 
 #: L2 cache of one H100
 L2_BYTES = 50 * 2**20
@@ -71,8 +87,8 @@ def device_plan(
     for the wave kernels); unpacked rows are ``L`` bytes rounded up to 16,
     whole 16-byte vector loads and whole 64-bit words for the wave kernels
     (the TPU's ``round_up(L, 128)`` is lane padding for its vector unit).
-    Raises ``ValueError`` when ``free_bytes`` (the card's free memory) is
-    given and the block would not fit in it.
+    Raises :class:`PlanRefusedError` (a ``ValueError``) when ``free_bytes``
+    (the card's free memory) is given and the block would not fit in it.
     """
     n_pad = _round_up(max(n, 1), 8)
     if packed:
@@ -83,7 +99,7 @@ def device_plan(
         width = _round_up(words, 16)
     nbytes = n_pad * width
     if free_bytes is not None and nbytes > free_bytes:
-        raise ValueError(
+        raise PlanRefusedError(
             f"matching-bit block {nbytes / 2**20:.1f} MiB > "
             f"{free_bytes / 2**20:.1f} MiB free on the card"
         )
@@ -127,6 +143,13 @@ class WavePlan(DevicePlan):
     def slots(self) -> int:
         return self.num_segments * self.seg
 
+    @property
+    def gather_bytes(self) -> int:
+        """Device bytes of the slot stream and its per-slot scratch, on top
+        of the bit block (the JAX package's ``gather_bytes`` counts the
+        VMEM tiles in that place)."""
+        return self.slots * (SLOT_BYTES + SLOT_SCRATCH)
+
 
 def _slot_plan(n, L, seg, num_waves, num_segments, fill, free_bytes, packed,
                **mega) -> WavePlan:
@@ -135,15 +158,14 @@ def _slot_plan(n, L, seg, num_waves, num_segments, fill, free_bytes, packed,
         **dataclasses.asdict(base), seg=seg, num_waves=num_waves,
         num_segments=num_segments, fill=fill, **mega,
     )
-    slot_bytes = SLOT_BYTES + SLOT_SCRATCH
     block = plan.rows * plan.width
     if not packed:  # the unpacked kernels' packed working copy of the block
         block += plan.rows * 8 * -(-plan.width // 64)
-    need = block + plan.slots * slot_bytes
+    need = block + plan.gather_bytes
     if free_bytes is not None and need > free_bytes:
-        raise ValueError(
+        raise PlanRefusedError(
             f"bit block ({block / 2**20:.1f} MiB) + slot stream "
-            f"({plan.slots} slots, {plan.slots * slot_bytes / 2**20:.1f} MiB) > "
+            f"({plan.slots} slots, {plan.gather_bytes / 2**20:.1f} MiB) > "
             f"{free_bytes / 2**20:.1f} MiB free on the card; run the stream in "
             f"shorter pieces, each carrying the last one's bits (substream_match(mb0=...))"
         )
@@ -155,8 +177,8 @@ def wave_plan(
 ) -> WavePlan:
     """Plan the segment kernel over ``schedule`` (a
     :class:`repro_torch.graph.waves.WaveSchedule`) in the given layout.
-    Raises ``ValueError`` when ``free_bytes`` is given and the bit block
-    and slot stream would not fit in it."""
+    Raises :class:`PlanRefusedError` (a ``ValueError``) when ``free_bytes``
+    is given and the bit block and slot stream would not fit in it."""
     return _slot_plan(
         n, L, int(schedule.width), int(schedule.num_waves),
         int(schedule.num_segments), float(schedule.fill), free_bytes, packed,
@@ -174,13 +196,61 @@ def mega_plan(
 ) -> WavePlan:
     """Plan the tile megakernel over ``layout`` (a
     :class:`repro_torch.graph.waves.BlockAlignedLayout`) in the given
-    layout of the bit block. Raises ``ValueError`` as :func:`wave_plan`
-    does."""
+    layout of the bit block. Raises :class:`PlanRefusedError` as
+    :func:`wave_plan` does."""
     return _slot_plan(
         n, L, int(layout.width), int(layout.seg_offsets.shape[0] - 1),
         int(layout.num_segments), float(layout.fill), free_bytes, packed,
         seg_block=int(layout.seg_block), num_tiles=int(layout.num_tiles),
     )
+
+
+#: Bytes one slot (or edge) moves through device memory: (src, dst) int32
+#: and the weight in, assigned int32 out.
+SLOT_STREAM_BYTES = 16
+
+
+def traffic_bytes(total_slots: int, live_slots: int, width: int) -> int:
+    """Modeled per-call device-memory traffic of the row-addressed kernels.
+
+    The slot stream in and assigned out (``SLOT_STREAM_BYTES`` per slot,
+    padding included) plus the bit-block row traffic: two row gathers and
+    two row scatters of ``width`` bytes per live slot. The bytes term that
+    :func:`repro_torch.launch.roofline.substream_achieved` divides by;
+    exact integers from the plan, so telemetry counters derived from it
+    are reproducible bit-exactly.
+    """
+    return total_slots * SLOT_STREAM_BYTES + live_slots * 4 * width
+
+
+def plan_counters(plan: DevicePlan) -> dict:
+    """The plan-accounting counter set (``plan.*``) for telemetry:
+    bit-exact copies of the :func:`device_plan` / :func:`wave_plan` /
+    :func:`mega_plan` fields, so that tests can compare them ``==`` with a
+    recomputed plan. Wave plans carry both
+    :data:`repro_torch.obs.PLAN_COUNTERS`."""
+    out = {
+        "plan.n_pad": int(plan.n_pad),
+        "plan.width": int(plan.width),
+        "plan.words": int(plan.words),
+        "plan.bit_block_bytes": int(plan.nbytes),
+        "plan.fits_l2": int(plan.fits_l2),
+        "plan.packed": int(plan.packed),
+    }
+    if isinstance(plan, WavePlan):
+        out.update(
+            {
+                "plan.seg": int(plan.seg),
+                "plan.num_waves": int(plan.num_waves),
+                "plan.num_segments": int(plan.num_segments),
+                "plan.rows": int(plan.rows),
+                "plan.gather_bytes": int(plan.gather_bytes),
+                "plan.fill": float(plan.fill),
+                "plan.seg_block": int(plan.seg_block),
+                "plan.num_tiles": int(plan.num_tiles),
+            }
+        )
+    return out
 
 
 def _thresholds_padded(cfg: SubstreamConfig, width: int, device, packed: bool = True):
@@ -261,6 +331,9 @@ def substream_match(
     max_width: int | None = None,
     seg_block: int | None = None,
     packed: bool | None = None,
+    telemetry=obs.DISABLED,
+    on_plan_failure: str = "raise",
+    validate: str = "off",
 ) -> MatchingResult:
     """Run Part 1 on the given stream order.
 
@@ -290,34 +363,216 @@ def substream_match(
     ``waves`` passes a precomputed schedule for this stream order (it is
     validated, not rebuilt); ``max_width`` caps the wave width when one is
     built here.
+
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`; default the no-op
+    :data:`repro_torch.obs.DISABLED`) records one
+    ``substream_match.backend`` event naming the backend that ran
+    (``"cuda"``, or ``"cpu"`` for the plain versions), the stage spans
+    (schedule/pack/layout/compile/execute), the plan and schedule
+    counters, and a :class:`repro_torch.obs.MatchTelemetry` appended to
+    ``telemetry.match_calls``.
+
+    ``validate`` is the input-guard policy: ``"off"`` (default, no cost),
+    ``"strict"`` (raise on a malformed stream) or ``"sanitize"`` (drop the
+    bad edges and report them), see
+    :func:`repro_torch.core.guard.validate_stream`.
+
+    ``on_plan_failure`` says what happens when a rung cannot run:
+    ``"raise"`` (default) propagates; ``"fallback"`` steps down the ladder
+    of :func:`_fallback_attempts`, with a ``fallback`` span, event and
+    counter for every failed rung, never silently. On the card the ladder
+    holds only kernel rungs and steps down only on a
+    :class:`PlanRefusedError` (the card's free memory, a row wider than the
+    kernels take), raised before any launch; a build, launch or operand
+    error propagates, so no failing kernel is hidden behind a plain
+    version. On the CPU it is the JAX package's ladder down to the plain
+    engines.
     """
     if schedule not in ("edges", "waves", "mega"):
         raise ValueError(f"unknown schedule {schedule!r}")
+    _check_on_plan_failure(on_plan_failure)
     packed = _resolve_packed(cfg, packed)
     dev = resolve_device(device)
     stream = stream.to(dev)
+    if validate != "off":
+        stream, _ = _guard.validate_stream(stream, cfg.n, policy=validate, telemetry=telemetry)
+    if telemetry.enabled:
+        telemetry.event(
+            "substream_match.backend", engine=schedule, backend=dev.type,
+            interpret=dev.type == "cpu",
+        )
     if cfg.n == 0:
         return _empty_result(stream, cfg, packed)
-    if schedule == "edges":
-        launch = _kernel.substream_match_packed if packed else _kernel.substream_match_unpacked
-        assigned, mb = launch(*kernel_inputs(stream, cfg, mb0, packed))
-    else:
-        sch = resolve_stream_schedule(stream, waves, max_width)
-        if schedule == "waves":
-            args, slots = waves_inputs(stream, cfg, sch, mb0, packed)
-            assigned_slots, mb = _kernel.substream_match_waves(*args, packed=packed)
-        else:
-            args, slots = mega_inputs(stream, cfg, sch, seg_block, mb0, packed)
-            assigned_slots, mb = _kernel.substream_match_mega(*args, packed=packed)
-        assigned = _waves.scatter_slot_assignments(slots, assigned_slots, stream.num_edges)
+    kw = dict(packed=packed, waves=waves, max_width=max_width, seg_block=seg_block,
+              telemetry=telemetry, mb0=mb0)
+    if on_plan_failure == "fallback":
+        return _substream_match_fallback(schedule, stream, cfg, **kw)
+    return _run_engine(schedule, stream, cfg, **kw)
+
+
+def merge_device(
+    stream: EdgeStream, result: MatchingResult, cfg: SubstreamConfig,
+    telemetry=obs.DISABLED, device=None,
+) -> torch.Tensor:
+    """Part 2 on the card: the bool [m] membership mask of T, bit-identical
+    to :func:`repro_torch.core.merge.merge_host` (``torch.nonzero(mask)``
+    gives its indices).
+
+    The R recorded edges are put in merge order
+    (:func:`repro_torch.core.merge.merge_order`) and run, with weight 1,
+    through Part 1 with one substream (``L = 1``, threshold 1):
+    :func:`substream_match`'s packed per-edge kernel on the card, its plain
+    version on the CPU. An edge enters T exactly when that run records it,
+    and the result is scattered back to stream positions. Only the recorded edges
+    go through the kernel: the JAX package's ``merge_device`` scans all m
+    edges with the rest marked invalid, which touches no bit either.
+    Reads only ``result.assigned`` (packed-safe). ``device=None`` runs on
+    the card. ``telemetry`` records one ``merge.device`` span and the
+    ``merge.device.calls`` counter.
+    """
+    dev = resolve_device(device)
+    with telemetry.span("merge.device"):
+        stream = stream.to(dev)
+        m = stream.num_edges
+        mask = torch.zeros(m, dtype=torch.bool, device=dev)
+        order = merge_order(result.with_assigned(result.assigned.to(dev)), cfg)
+        if order.numel():
+            r = order.numel()
+            one = EdgeStream(
+                src=stream.src[order], dst=stream.dst[order],
+                weight=torch.ones(r, dtype=torch.float32, device=dev),
+                valid=torch.ones(r, dtype=torch.bool, device=dev),
+            )
+            res = substream_match(
+                one, SubstreamConfig(n=cfg.n, L=1, eps=cfg.eps), device=dev, packed=True
+            )
+            mask[order] = res.assigned >= 0
+        if telemetry.enabled and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    if telemetry.enabled:
+        telemetry.counters.add("merge.device.calls")
+    return mask
+
+
+def _check_on_plan_failure(on_plan_failure: str):
+    if on_plan_failure not in ("raise", "fallback"):
+        raise ValueError(
+            f"unknown on_plan_failure {on_plan_failure!r}; use 'raise' or 'fallback'"
+        )
+
+
+# --------------------------------------------------------------------------
+# The device seams: every kernel launch of the entries goes through one of
+# these module attributes, which the fault injector patches.
+
+
+def _edges_device(args, packed: bool):
+    """Launch the per-edge kernel of the layout on :func:`kernel_inputs`'s operands."""
+    launch = _kernel.substream_match_packed if packed else _kernel.substream_match_unpacked
+    return launch(*args)
+
+
+def _waves_device(args, packed: bool):
+    """Launch the segment kernel on :func:`waves_inputs`'s operands."""
+    return _kernel.substream_match_waves(*args, packed=packed)
+
+
+def _mega_device(args, packed: bool):
+    """Launch the tile megakernel on :func:`mega_inputs`'s operands."""
+    return _kernel.substream_match_mega(*args, packed=packed)
+
+
+def _library(dev, name: str):
+    """The kernel library a launch on ``dev`` loads (none on the CPU)."""
+    return name if dev.type == "cuda" else None
+
+
+def _recorder(telemetry, engine: str, stream):
+    dev = stream.device
+    return obs.recorder(telemetry, engine, stream.num_edges, dev.type, dev.type == "cpu")
+
+
+def _edges_entry(stream, cfg, *, packed, telemetry, mb0=None) -> MatchingResult:
+    """The per-edge engine on a stream on its device. It has no host
+    scheduling, so its schedule and pack stages stay 0."""
+    m = stream.num_edges
+    rec = _recorder(telemetry, "kernel_edges", stream)
+    with rec.stage("layout"):
+        args = kernel_inputs(stream, cfg, mb0, packed)
+    if telemetry.enabled:
+        plan = device_plan(cfg.n, cfg.L, packed=packed)
+        rec.put_many(plan_counters(plan))
+        rec.put("stream.num_edges", m)
+        rec.put("traffic.hbm_bytes", traffic_bytes(m, m, plan.width))
+    with rec.device_stage(_library(stream.device, _kernel.EDGES_LIBRARY)):
+        assigned, mb = rec.block(_edges_device(args, packed))
+    rec.finish()
     return _result(assigned, mb, cfg, packed)
 
 
-def resolve_stream_schedule(stream, waves=None, max_width: int | None = None):
+def _entry_schedule(rec, stream, waves, max_width, telemetry):
+    """The entry's wave schedule, its cost credited to the stages: a
+    schedule built here carries its own assign/pack times; a passed one
+    costs its validation."""
+    if waves is None:
+        sch = resolve_stream_schedule(stream, None, max_width, telemetry)
+        rec.add_stage("schedule", sch.schedule_seconds)
+        rec.add_stage("pack", sch.pack_seconds)
+        return sch
+    with rec.stage("schedule"):
+        return resolve_stream_schedule(stream, waves, max_width, telemetry)
+
+
+def _waves_entry(stream, cfg, *, packed, waves, max_width, telemetry, mb0=None):
+    m = stream.num_edges
+    rec = _recorder(telemetry, "kernel_waves", stream)
+    sch = _entry_schedule(rec, stream, waves, max_width, telemetry)
+    with rec.stage("layout"):
+        args, slots = waves_inputs(stream, cfg, sch, mb0, packed)
+    if telemetry.enabled:
+        plan = wave_plan(cfg.n, cfg.L, sch, packed=packed)
+        rec.put_many(_waves.schedule_counters(sch))
+        rec.put_many(plan_counters(plan))
+        rec.put("stream.num_edges", m)
+        rec.put("traffic.hbm_bytes", traffic_bytes(plan.slots, sch.num_scheduled, plan.width))
+    with rec.device_stage(_library(stream.device, _kernel.WAVES_LIBRARY)):
+        assigned_slots, mb = rec.block(_waves_device(args, packed))
+    with rec.stage("layout"):
+        assigned = rec.block(_waves.scatter_slot_assignments(slots, assigned_slots, m))
+    rec.finish()
+    return _result(assigned, mb, cfg, packed)
+
+
+def _mega_entry(stream, cfg, *, packed, waves, max_width, seg_block, telemetry, mb0=None):
+    m = stream.num_edges
+    seg_block = MEGA_SEG_BLOCK if seg_block is None else seg_block
+    rec = _recorder(telemetry, "kernel_mega", stream)
+    sch = _entry_schedule(rec, stream, waves, max_width, telemetry)
+    with rec.stage("layout"):
+        args, slots, layout, plan = _mega_operands(stream, cfg, sch, seg_block, mb0, packed)
+    if telemetry.enabled:
+        rec.put_many(_waves.schedule_counters(sch))
+        rec.put_many(_waves.layout_counters(layout, sch))
+        rec.put_many(plan_counters(plan))
+        rec.put("stream.num_edges", m)
+        rec.put("traffic.hbm_bytes", traffic_bytes(plan.slots, sch.num_scheduled, plan.width))
+    with rec.device_stage(_library(stream.device, _kernel.WAVES_LIBRARY)):
+        assigned_slots, mb = rec.block(_mega_device(args, packed))
+    with rec.stage("layout"):
+        assigned = rec.block(_waves.scatter_slot_assignments(slots, assigned_slots, m))
+    rec.finish()
+    return _result(assigned, mb, cfg, packed)
+
+
+def resolve_stream_schedule(
+    stream, waves=None, max_width: int | None = None, telemetry=obs.DISABLED
+):
     """The wave schedule of ``stream``'s order: ``waves`` validated against
     the stream, or one built on the host."""
     src, dst, valid = (to_numpy(t) for t in (stream.src, stream.dst, stream.valid))
-    return _waves.resolve_schedule(src, dst, valid, schedule=waves, max_width=max_width)
+    return _waves.resolve_schedule(
+        src, dst, valid, schedule=waves, max_width=max_width, telemetry=telemetry
+    )
 
 
 def _free_bytes(dev):
@@ -377,6 +632,11 @@ def mega_inputs(
     packed, width unpacked), the layout's block-aligned segment offsets,
     and ``mb0`` padded to the block. The kernel takes ``packed`` besides.
     """
+    return _mega_operands(stream, cfg, sch, seg_block, mb0, packed)[:2]
+
+
+def _mega_operands(stream, cfg, sch, seg_block, mb0, packed):
+    """:func:`mega_inputs`, and the block-aligned layout and plan."""
     dev = stream.device
     seg_block = MEGA_SEG_BLOCK if seg_block is None else seg_block
     layout = _waves.block_aligned_layout(sch, seg_block)
@@ -406,7 +666,7 @@ def mega_inputs(
         seg_block,
         _mb0_block(mb0, cfg, plan, dev),
     )
-    return args, torch.from_numpy(flat).to(dev)
+    return args, torch.from_numpy(flat).to(dev), layout, plan
 
 
 def _mb0_block(mb0, cfg: SubstreamConfig, plan: WavePlan, dev):
@@ -439,14 +699,13 @@ def kernel_inputs(
 
 
 # --------------------------------------------------------------------------
-# Resumable chunked execution.
+# Engines, the fallback ladder, and resumable chunked execution.
 
-#: Engines :func:`match_epochs` can drive: the three kernel schedules
-#: (through :func:`substream_match`), the plain CS-SEQ scan ``"scan"``
-#: (:func:`repro_torch.core.mwm_scan`), the plain wave engine
-#: ``"waves_xla"`` (:func:`repro_torch.core.mwm_waves`, named after the
-#: JAX package's XLA engine) and the oracles ``"ref"``. All take the
-#: carried bits, so every engine is epoch-chunkable.
+#: Engines :func:`match_epochs` can drive: the three kernel schedules, the
+#: plain CS-SEQ scan ``"scan"`` (:func:`repro_torch.core.mwm_scan`), the
+#: plain wave engine ``"waves_xla"`` (:func:`repro_torch.core.mwm_waves`,
+#: named after the JAX package's XLA engine) and the oracles ``"ref"``.
+#: All take the carried bits, so every engine is epoch-chunkable.
 EPOCH_ENGINES = ("edges", "waves", "mega", "scan", "waves_xla", "ref")
 
 
@@ -478,34 +737,42 @@ def _repack(result: MatchingResult, packed: bool) -> MatchingResult:
 
 
 def _run_engine(
-    engine: str, stream, cfg: SubstreamConfig, *, packed: bool, device,
-    max_width: int | None = None, seg_block: int | None = None, mb0=None,
+    engine: str, stream, cfg: SubstreamConfig, *, packed: bool, waves=None,
+    max_width: int | None = None, seg_block: int | None = None, telemetry=obs.DISABLED,
+    mb0=None,
 ) -> MatchingResult:
-    """Run one engine of :data:`EPOCH_ENGINES` on ``stream`` (on ``device``)
+    """Run one engine of :data:`EPOCH_ENGINES` on ``stream`` (on its device)
     from the carried bits ``mb0`` (caller storage: uint8 [n, words] packed
-    / bool [n, L] dense); the plain engines take the dense view."""
-    if engine in ("edges", "waves", "mega"):
-        return substream_match(
-            stream, cfg, mb0=mb0, device=device, schedule=engine, max_width=max_width,
-            seg_block=seg_block, packed=packed,
-        )
+    / bool [n, L] dense); the plain engines take the dense view. They are
+    looked up in their module at call time, so the fault injector can make
+    them fail too."""
+    if engine == "edges":
+        return _edges_entry(stream, cfg, packed=packed, telemetry=telemetry, mb0=mb0)
+    if engine == "waves":
+        return _waves_entry(stream, cfg, packed=packed, waves=waves, max_width=max_width,
+                            telemetry=telemetry, mb0=mb0)
+    if engine == "mega":
+        return _mega_entry(stream, cfg, packed=packed, waves=waves, max_width=max_width,
+                           seg_block=seg_block, telemetry=telemetry, mb0=mb0)
+    dev = stream.device
     if engine == "waves_xla":
         return _repack(
             _matching.mwm_waves(
-                stream, cfg, max_width=max_width, mb0=_mb0_dense(mb0, cfg, packed), device=device
+                stream, cfg, schedule=waves, max_width=max_width,
+                mb0=_mb0_dense(mb0, cfg, packed), device=dev, telemetry=telemetry,
             ),
             packed,
         )
     if engine == "scan":
         return _repack(
-            _matching.mwm_scan(stream, cfg, mb0=_mb0_dense(mb0, cfg, packed), device=device),
+            _matching.mwm_scan(stream, cfg, mb0=_mb0_dense(mb0, cfg, packed), device=dev),
             packed,
         )
     if engine == "ref":
         valid = stream.valid  # invalid edges enter as vertex 0 with weight 0, as in the kernels
         src, dst = (torch.where(valid, t, 0) for t in (stream.src, stream.dst))
         w = torch.where(valid, stream.weight.to(torch.float32), 0.0)
-        thr = torch.from_numpy(cfg.thresholds().copy()).to(stream.device)
+        thr = torch.from_numpy(cfg.thresholds().copy()).to(dev)
         if packed:
             assigned, mb = _ref.substream_match_ref_packed(src, dst, w, thr, cfg.n, mb0=mb0)
             return MatchingResult(assigned=assigned, mb_packed=mb, L=cfg.L)
@@ -514,19 +781,113 @@ def _run_engine(
     raise ValueError(f"unknown engine {engine!r}")
 
 
-def _refuse_unported(snapshots, guard, telemetry, validate: str, on_plan_failure: str):
-    if on_plan_failure not in ("raise", "fallback"):
-        raise ValueError(f"unknown on_plan_failure {on_plan_failure!r}; use 'raise' or 'fallback'")
-    unported = [
-        ("snapshots=", snapshots is not None, "§1 item 10"),
-        ("guard=", guard is not None, "§1 item 10"),
-        ("on_plan_failure='fallback'", on_plan_failure == "fallback", "§1 item 9"),
-        (f"validate={validate!r}", validate != "off", "§1 item 9"),
-        ("telemetry=", telemetry is not None, "§1 item 11"),
-    ]
-    for what, asked, item in unported:
-        if asked:
-            raise NotImplementedError(f"match_epochs({what}) is not ported yet (ROADMAP.md {item})")
+class FallbackExhaustedError(RuntimeError):
+    """Every engine of the fallback ladder failed.
+
+    ``attempts`` is the ordered ``(engine_label, exception)`` list, so a
+    log shows the whole degradation path in one line.
+    """
+
+    def __init__(self, attempts):
+        self.attempts = tuple(attempts)
+        lines = "; ".join(
+            f"{label}: {type(err).__name__}: {err}" for label, err in self.attempts
+        )
+        super().__init__(f"all fallback engines failed ({lines})")
+
+
+def _fallback_attempts(schedule: str, seg_block: int | None, on_card: bool = False):
+    """The degradation ladder of ``on_plan_failure="fallback"``, as
+    ``(engine, {knob overrides}, label)`` entries:
+
+    * ``"mega"``: mega, mega[seg_block=1] (when ``seg_block`` is not 1
+      already), waves, waves_xla, scan;
+    * ``"waves"``: waves, waves_xla, scan;
+    * ``"edges"``: edges, waves_xla, scan.
+
+    ``waves_xla`` is :func:`repro_torch.core.mwm_waves` and ``scan``
+    :func:`repro_torch.core.mwm_scan`, plain torch. ``on_card`` keeps only
+    the kernel rungs (mega, mega[seg_block=1], waves; waves; edges): a
+    kernel on the card never gives way to a plain version. Both depart from
+    the JAX package's ladder, which also shrinks the waves kernel's
+    ``block_s`` (the port's waves kernel has no such knob) and reaches the
+    plain engines on the accelerator too."""
+    if schedule == "mega":
+        attempts = [("mega", {"seg_block": seg_block}, "mega")]
+        if (MEGA_SEG_BLOCK if seg_block is None else seg_block) != 1:
+            attempts.append(("mega", {"seg_block": 1}, "mega[seg_block=1]"))
+        attempts.append(("waves", {}, "waves"))
+    else:
+        attempts = [(schedule, {}, schedule)]
+    if on_card:
+        return attempts
+    return attempts + [("waves_xla", {}, "waves_xla"), ("scan", {}, "scan")]
+
+
+def _ladder(schedule: str, seg_block: int | None, device):
+    """The rungs of the ladder on ``device`` and the failures they absorb:
+    on the card the kernel rungs and :class:`PlanRefusedError` alone, on
+    the CPU the whole ladder and every error."""
+    on_card = device.type == "cuda"
+    absorbed = PlanRefusedError if on_card else Exception
+    return _fallback_attempts(schedule, seg_block, on_card), absorbed
+
+
+def _substream_match_fallback(
+    schedule: str, stream, cfg: SubstreamConfig, *, packed, waves, max_width, seg_block,
+    telemetry, mb0=None,
+) -> MatchingResult:
+    """Run the :func:`_fallback_attempts` ladder until an engine returns.
+
+    Every failure is observable: a ``fallback`` instant event
+    (from_engine, to_engine, reason) and the ``fallback.count`` session
+    counter, and each degraded attempt runs inside a ``fallback`` span. The
+    :class:`repro_torch.obs.MatchTelemetry` record of the engine that
+    delivered carries ``fallback.count`` (0 on the clean path). Validation
+    and invariant errors are *not* absorbed: a bad stream fails every
+    engine alike. On the card only a :class:`PlanRefusedError` is absorbed
+    and the ladder holds only kernel rungs, so it ends in a kernel's result,
+    in :class:`FallbackExhaustedError`, or in the error of a kernel that
+    failed to build or launch; on the CPU every other error is absorbed,
+    as in the JAX package.
+    """
+    attempts, absorbed = _ladder(schedule, seg_block, stream.device)
+    failures = []
+    for idx, (engine, overrides, label) in enumerate(attempts):
+        kw = {"seg_block": seg_block, **overrides}
+        ncalls = len(telemetry.match_calls)
+        span = (
+            telemetry.span("fallback", engine=label, attempt=idx)
+            if failures
+            else obs.NULL_SPAN
+        )
+        try:
+            with span:
+                out = _run_engine(
+                    engine, stream, cfg, packed=packed, waves=waves, max_width=max_width,
+                    seg_block=kw["seg_block"], telemetry=telemetry, mb0=mb0,
+                )
+        except (_guard.StreamValidationError, _guard.MatchingInvariantError):
+            raise
+        except absorbed as err:  # noqa: BLE001 (the availability ladder)
+            failures.append((label, err))
+            if telemetry.enabled:
+                nxt = attempts[idx + 1][2] if idx + 1 < len(attempts) else None
+                telemetry.event(
+                    "fallback",
+                    from_engine=label,
+                    to_engine=nxt,
+                    reason=f"{type(err).__name__}: {err}"[:500],
+                )
+                telemetry.counters.add("fallback.count")
+            if idx + 1 == len(attempts):
+                raise FallbackExhaustedError(failures) from err
+            continue
+        if telemetry.enabled and len(telemetry.match_calls) > ncalls:
+            # the degradation depth, on the record of the engine that delivered
+            telemetry.match_calls[-1].counters["fallback.count"] = len(failures)
+        return out
+    raise FallbackExhaustedError(failures)
 
 
 def match_epochs(
@@ -539,7 +900,7 @@ def match_epochs(
     snapshots=None,
     guard=None,
     packed: bool | None = None,
-    telemetry=None,
+    telemetry=obs.DISABLED,
     validate: str = "off",
     on_plan_failure: str = "raise",
     max_width: int | None = None,
@@ -558,29 +919,49 @@ def match_epochs(
     engine: greedy matching is confluent in the carried bits, and the
     epochs' ``assigned`` slices concatenate.
 
-    ``state`` resumes from a carried state (this package's, or the JAX
-    package's through :func:`repro_torch.convert.state_from_reference`):
-    only the stream suffix past ``state.pos`` runs. A state made for
-    another stream, config or storage raises
-    :class:`~repro_torch.checkpoint.snapshots.SnapshotMismatchError`; one
-    that does not hold together (:meth:`MatchState.problems`) raises
-    :class:`~repro_torch.checkpoint.snapshots.SnapshotCorruptError`.
-    ``epoch_hook(epoch_index, state)`` fires after each epoch.
+    Resumability:
+
+    * ``snapshots`` (a :class:`repro_torch.checkpoint.snapshots
+      .SnapshotManager`) commits the state after every epoch and, when
+      ``state`` is not given, resumes from the latest committed snapshot
+      (this package's or the JAX package's: the layout on disk is the
+      same), replaying only the remaining suffix;
+    * ``state`` resumes from a carried state (this package's, or the JAX
+      package's through :func:`repro_torch.convert.state_from_reference`);
+    * either way a state made for another stream, config or storage raises
+      :class:`~repro_torch.checkpoint.snapshots.SnapshotMismatchError`, and
+      one that does not hold together (:meth:`MatchState.problems`)
+      :class:`~repro_torch.checkpoint.snapshots.SnapshotCorruptError`;
+    * ``guard`` (a :class:`repro_torch.core.executor.ExecutionGuard`) wraps
+      each epoch's device work: per-epoch deadline, bounded retries with
+      exponential backoff on transient faults, straggler EWMA. A plan the
+      card refuses is the fallback ladder's job: pass
+      ``on_plan_failure="fallback"`` to degrade engines inside the epoch.
+
+    ``validate`` checks (or sanitizes) the whole stream before the first
+    epoch (:func:`repro_torch.core.guard.validate_stream`). ``telemetry``
+    records one ``epoch.index`` event per executed epoch, the
+    ``epoch.count`` counter and each engine call's record.
+    ``epoch_hook(epoch_index, state)`` fires after each epoch's snapshot
+    commit (the crash-injection seam of
+    :func:`repro_torch.testing.faultline.kill_at_epoch`).
 
     ``packed=None`` follows ``cfg.mb_layout``; ``device=None`` runs on the
-    card, and the result's tensors lie there. ``snapshots=``, ``guard=``,
-    ``on_plan_failure="fallback"``, ``validate`` other than ``"off"`` and
-    ``telemetry=`` are not ported and raise ``NotImplementedError``.
+    card, and the result's tensors lie there.
     """
     if engine not in EPOCH_ENGINES:
         raise ValueError(f"unknown engine {engine!r}; use {EPOCH_ENGINES}")
-    _refuse_unported(snapshots, guard, telemetry, validate, on_plan_failure)
+    _check_on_plan_failure(on_plan_failure)
     packed = _resolve_packed(cfg, packed)
     dev = resolve_device(device)
     stream = stream.to(dev)
+    if validate != "off":
+        stream, _ = _guard.validate_stream(stream, cfg.n, policy=validate, telemetry=telemetry)
     if cfg.n == 0:
         return _empty_result(stream, cfg, packed)
     template = MatchState.initial(stream, cfg, packed)
+    if state is None and snapshots is not None:
+        state = snapshots.latest(template)
     if state is None:
         state = template
     elif state.fingerprint != template.fingerprint:
@@ -591,6 +972,7 @@ def match_epochs(
     elif state.problems():
         raise SnapshotCorruptError(f"carried state is inconsistent: {state.problems()}")
     bounds = epoch_bounds(stream.num_edges, epochs)
+    fallback = on_plan_failure == "fallback" and engine in ("edges", "waves", "mega")
     for k in range(epochs):
         a, b = max(bounds[k], state.pos), bounds[k + 1]
         if b <= state.pos:
@@ -599,12 +981,23 @@ def match_epochs(
             src=stream.src[a:b], dst=stream.dst[a:b],
             weight=stream.weight[a:b], valid=stream.valid[a:b],
         )
+        telemetry.event("epoch.index", epoch=k, start=a, end=b, engine=engine)
+        telemetry.count("epoch.count")
         mb0 = None if state.mb0 is None else torch.from_numpy(state.mb0.copy()).to(dev)
-        out = _run_engine(
-            engine, sub, cfg, packed=packed, device=dev, max_width=max_width,
-            seg_block=seg_block, mb0=mb0,
-        )
+
+        def run_one(sub=sub, mb0=mb0):
+            kw = dict(packed=packed, waves=None, max_width=max_width, seg_block=seg_block,
+                      telemetry=telemetry, mb0=mb0)
+            if fallback:
+                return _substream_match_fallback(engine, sub, cfg, **kw)
+            return _run_engine(engine, sub, cfg, **kw)
+
+        out = guard.run(run_one, label=f"epoch[{k}]") if guard is not None else run_one()
         state = state.advance(out, b)
+        if snapshots is not None:
+            snapshots.save(state)
         if epoch_hook is not None:
             epoch_hook(k, state)
+    if snapshots is not None:
+        snapshots.wait()
     return state.result(dev)

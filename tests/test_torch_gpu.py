@@ -3,7 +3,12 @@ layouts) against their plain versions, with and without carried bits, the
 per-edge kernels on streams aimed at their batch window too, the four
 wave kernels on streams aimed at their slot ring (against the packed
 per-edge kernel as well), and the main path and the epoch executor on the
-card against the same calls on the CPU. They skip without a CUDA device; on a machine with an NVIDIA card run
+card against the same calls on the CPU; then the robustness and
+observability layers on the card: the per-edge kernels at L = 1 (the
+device merge's shape), ``merge_device``, every rung of the fallback
+ladder, the telemetry records of the three entries, ``validate``, and
+snapshots with the execution guard around the epoch executor. They skip
+without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -414,3 +419,220 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         kernel.substream_match_waves(torch.zeros((8, 2), dtype=torch.int32, device=cuda),
                                      torch.ones(8, device=cuda),
                                      torch.ones((1, 24), device=cuda), offs, 8, 8, packed=False)
+
+
+# --------------------------------------------------------------------------
+# The robustness and observability layers on the card.
+
+
+@pytest.mark.parametrize("ones", [False, True])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("name", sorted(WINDOW))
+def test_edge_kernels_at_L1(cuda, name, packed, carried, ones):
+    """One substream: one lane, one CTA, the threshold 1 and +inf pads, a
+    packed row of 8 bytes; with every weight 1 (``ones``) it is the shape
+    ``merge_device`` launches."""
+    c = WINDOW[name](1)
+    if ones:
+        c = c._replace(w=np.ones_like(c.w))
+    stream, cfg, mb0 = _carried(c, cuda, packed) if carried else (*_on(c, cuda), None)
+    args = kernel_inputs(stream, cfg, mb0, packed=packed)
+    assert args[2].shape == ((8, 8) if packed else (1, 16))
+    _held_to_plain(packed, args)
+
+
+def _part1_on_cpu(c):
+    from repro_torch.core import mwm_scan
+
+    stream, cfg = _on(c, "cpu")
+    return stream, cfg, mwm_scan(stream, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["rmat10_L64", "rmat10_L300", "star", "duplicates", "empty"])
+def test_merge_device_on_card_equals_merge_host(cuda, case):
+    from repro_torch.core import MatchingResult, merge_host
+    from repro_torch.kernels.substream_match.ops import merge_device
+
+    stream, cfg, res = _part1_on_cpu(CASES[case]())
+    want = merge_host(stream, res, cfg)
+    on_card = MatchingResult(res.assigned.to(cuda), mb=res.mb.to(cuda))
+    before = build.launches[kernel.NAME]
+    mask = merge_device(stream.to(cuda), on_card, cfg)
+    assert mask.device.type == "cuda" and mask.dtype == torch.bool
+    np.testing.assert_array_equal(torch.nonzero(mask).flatten().cpu().numpy(), want)
+    recorded = int((res.assigned >= 0).sum())
+    assert build.launches[kernel.NAME] == before + (1 if recorded else 0)
+
+
+#: faults injected as plan refusals (the one failure the card's ladder
+#: absorbs), schedule, and the kernel rung that delivers (None: the ladder
+#: is exhausted); "launch_error" injects a failure that is no refusal
+LADDER_FAULTS = {
+    "mega_launch": (("mega_device",), "mega", "waves"),
+    "mega_plan": (("mega_plan",), "mega", "waves"),
+    "mega_and_waves": (("mega_device", "waves_device"), "mega", None),
+    "waves_launch": (("waves_device",), "waves", None),
+    "edges_launch": (("edges_device",), "edges", None),
+    "launch_error": (("mega_device",), "mega", None),
+}
+
+
+def _wave_kernel_name(schedule, packed):
+    if schedule == "mega":
+        return kernel.MEGA_NAME if packed else kernel.MEGA_UNPACKED_NAME
+    return kernel.WAVES_NAME if packed else kernel.WAVES_UNPACKED_NAME
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fault", sorted(LADDER_FAULTS))
+def test_ladder_rungs_on_card(cuda, fault, packed):
+    """On the card the ladder holds only kernel rungs and steps down only on
+    a plan refusal: it ends in a kernel's bits or in FallbackExhaustedError,
+    and any other failure propagates with no fallback event."""
+    from repro_torch import obs
+    from repro_torch.kernels.substream_match.ops import FallbackExhaustedError, PlanRefusedError
+    from repro_torch.testing import faultline
+
+    targets, schedule, delivered = LADDER_FAULTS[fault]
+    c = CASES["rmat10_L64"]()
+    _, _, want = _part1_on_cpu(c)
+    stream, cfg = _on(c, cuda)
+    tel = obs.Telemetry()
+    before = dict(build.launches)
+    exc_type = faultline.InjectedFailure if fault == "launch_error" else PlanRefusedError
+    kw = dict(schedule=schedule, packed=packed, on_plan_failure="fallback", telemetry=tel)
+    with faultline.failing(*targets, exc_type=exc_type):
+        if delivered is not None:
+            got = substream_match(stream, cfg, **kw)
+        else:
+            with pytest.raises(FallbackExhaustedError if exc_type is PlanRefusedError
+                               else faultline.InjectedFailure):
+                substream_match(stream, cfg, **kw)
+    events = [e for e in tel.events if e["name"] == "fallback"]
+    assert tel.counters.get("fallback.count") == len(events)
+    assert not [r for r in tel.match_calls if r.engine in ("waves_xla", "scan")]
+    launched = {k for k, v in build.launches.items() if v != before.get(k, 0)}
+    if delivered is None:
+        assert launched == set() and bool(events) == (exc_type is PlanRefusedError)
+        return
+    assert got.assigned.device.type == "cuda"
+    assert torch.equal(got.assigned.cpu(), want.assigned) and torch.equal(got.mb.cpu(), want.mb)
+    name = _wave_kernel_name(delivered, packed)
+    assert events and build.launches[name] == before.get(name, 0) + 1 and launched == {name}
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("schedule", ["edges", "waves", "mega"])
+def test_clean_ladder_on_card(cuda, schedule, packed):
+    from repro_torch import obs
+
+    c = CASES["rmat10_L64"]()
+    _, _, want = _part1_on_cpu(c)
+    tel = obs.Telemetry()
+    name = (kernel.NAME if packed else kernel.UNPACKED_NAME) if schedule == "edges" \
+        else _wave_kernel_name(schedule, packed)
+    before = build.launches[name]
+    got = substream_match(*_on(c, cuda), schedule=schedule, packed=packed,
+                          on_plan_failure="fallback", telemetry=tel)
+    assert torch.equal(got.assigned.cpu(), want.assigned) and torch.equal(got.mb.cpu(), want.mb)
+    assert tel.counters.get("fallback.count") == 0 and build.launches[name] == before + 1
+    rec, = tel.match_calls
+    assert (rec.engine, rec.backend, rec.interpret) == (f"kernel_{schedule}", "cuda", False)
+    assert rec.counters["fallback.count"] == 0
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("schedule", ["edges", "waves", "mega"])
+def test_ladder_at_L2049_on_card(cuda, schedule, packed):
+    """One past the widest row the kernels take: every kernel rung refuses
+    it before a launch, and the ladder ends in FallbackExhaustedError (no
+    plain version stands in for a kernel on the card)."""
+    from repro_torch import obs
+    from repro_torch.kernels.substream_match.ops import (
+        FallbackExhaustedError, _fallback_attempts,
+    )
+
+    c = rmat_case(7, edge_factor=4, L=2049, eps=0.002, seed=9)
+    tel = obs.Telemetry()
+    before = sum(build.launches.values())
+    with pytest.raises(FallbackExhaustedError) as exc:
+        substream_match(*_on(c, cuda), schedule=schedule, packed=packed,
+                        on_plan_failure="fallback", telemetry=tel)
+    labels = [label for _, _, label in _fallback_attempts(schedule, None, on_card=True)]
+    assert [label for label, _ in exc.value.attempts] == labels
+    events = [e for e in tel.events if e["name"] == "fallback"]
+    assert len(events) == len(labels) and all("width" in e["reason"] for e in events)
+    assert sum(build.launches.values()) == before
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("schedule", ["edges", "waves", "mega"])
+def test_telemetry_records_on_card(cuda, schedule, packed):
+    from repro_torch import obs
+
+    c = CASES["rmat10_L300"]()
+    tel = obs.Telemetry()
+    got = substream_match(*_on(c, cuda), schedule=schedule, packed=packed, telemetry=tel)
+    plain = substream_match(*_on(c, cuda), schedule=schedule, packed=packed)
+    assert torch.equal(got.assigned, plain.assigned) and torch.equal(got.mb, plain.mb)
+    rec, = tel.match_calls
+    assert (rec.backend, rec.interpret) == ("cuda", False)
+    assert obs.consistency_problems(rec.stage_seconds, rec.wall_seconds) == []
+    assert rec.device_seconds > 0
+    assert [e["backend"] for e in tel.events if e["name"] == "substream_match.backend"] == ["cuda"]
+    assert rec.roofline()["achieved_fraction"] > 0
+
+
+@pytest.mark.parametrize("policy", ["strict", "sanitize"])
+def test_validate_on_card_matches_cpu(cuda, policy):
+    from repro_torch.core import StreamValidationError, validate_stream
+    from repro_torch.testing import faultline
+
+    c = CASES["rmat10_L64"]()
+    cpu_stream, cfg = _on(c, "cpu")
+    dirty, _ = faultline.poison_weights(cpu_stream, (1, 7, 99), "nan")
+    dirty, _ = faultline.poison_ids(dirty, cfg.n, (5, 500), "sacrificial")
+    if policy == "strict":
+        with pytest.raises(StreamValidationError) as want:
+            validate_stream(dirty, cfg.n, policy=policy)
+        with pytest.raises(StreamValidationError) as got:
+            validate_stream(dirty.to(cuda), cfg.n, policy=policy)
+        assert str(got.value) == str(want.value)
+        return
+    want, want_report = validate_stream(dirty, cfg.n, policy=policy)
+    got, report = validate_stream(dirty.to(cuda), cfg.n, policy=policy)
+    assert got.src.device.type == "cuda" and report == want_report
+    for a, b in zip((got.src, got.dst, got.weight, got.valid),
+                    (want.src, want.dst, want.weight, want.valid)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_snapshots_and_guard_around_epochs_on_card(cuda, tmp_path):
+    """``match_epochs(engine="edges", packed=False)`` on the card with a
+    snapshot per epoch: killed after epoch 1, resumed from disk with one
+    transient flake retried by the guard; equal to the one-shot run."""
+    from repro_torch import obs
+    from repro_torch.checkpoint import SnapshotManager
+    from repro_torch.core import ExecutionGuard
+    from repro_torch.testing import faultline
+
+    c = CASES["rmat10_L64"]()
+    stream, cfg = _on(c, cuda)
+    one = substream_match(stream, cfg, packed=False)
+    kw = dict(epochs=4, engine="edges", packed=False)
+    with pytest.raises(faultline.SimulatedCrash):  # a synchronous writer: epochs 0, 1 on disk
+        match_epochs(stream, cfg, snapshots=SnapshotManager(tmp_path, async_save=False),
+                     epoch_hook=faultline.kill_at_epoch(1), **kw)
+    clk = faultline.FakeClock()
+    tel = obs.Telemetry()
+    guard = ExecutionGuard(retries=2, clock=clk, sleep=clk.sleep, telemetry=tel)
+    before = build.launches[kernel.UNPACKED_NAME]
+    with faultline.flaky("edges_device", times=1):
+        got = match_epochs(stream, cfg, snapshots=SnapshotManager(tmp_path, telemetry=tel),
+                           guard=guard, telemetry=tel, **kw)
+    assert torch.equal(got.assigned, one.assigned) and torch.equal(got.mb, one.mb)
+    assert [e["epoch"] for e in tel.events if e["name"] == "epoch.index"] == [2, 3]
+    assert tel.counters.get("guard.retry") == 1 and clk.sleeps == [0.05]
+    assert tel.counters.get("snapshot.restore.count") == 1
+    assert build.launches[kernel.UNPACKED_NAME] == before + 2

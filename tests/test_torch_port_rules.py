@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import EdgeStream, SubstreamConfig, mwm_pipeline
+from repro_torch.checkpoint import SnapshotManager
+from repro_torch.core import EdgeStream, ExecutionGuard, SubstreamConfig, mwm_pipeline
 from repro_torch.kernels.substream_match import kernel
 from repro_torch.kernels.substream_match.ops import (
     L2_BYTES,
     device_plan,
     match_epochs,
+    merge_device,
     substream_match,
 )
 
@@ -93,12 +95,26 @@ def test_unpacked_and_epochs_default_to_the_card(monkeypatch):
             match_epochs(stream, cfg, epochs=2, engine=engine)
 
 
-@pytest.mark.parametrize("kw", [{"snapshots": object()}, {"guard": object()},
-                                {"on_plan_failure": "fallback"}, {"validate": "strict"},
-                                {"telemetry": object()}])
-def test_unported_epoch_parameters_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        match_epochs(_cpu_stream(), SubstreamConfig(n=3, L=8), engine="scan", device="cpu", **kw)
+NEW_ENTRIES = {
+    "merge_device": lambda s, c, tmp: merge_device(s, substream_match(s, c, device="cpu"), c),
+    "substream_match_fallback": lambda s, c, tmp: substream_match(s, c, on_plan_failure="fallback"),
+    "substream_match_validate": lambda s, c, tmp: substream_match(s, c, validate="strict"),
+    "match_epochs_snapshots": lambda s, c, tmp: match_epochs(
+        s, c, engine="scan", snapshots=SnapshotManager(tmp)),
+    "match_epochs_guard": lambda s, c, tmp: match_epochs(
+        s, c, engine="edges", guard=ExecutionGuard(), on_plan_failure="fallback"),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(NEW_ENTRIES))
+def test_robustness_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
+    """The robustness layers add no CPU fallback: ``device=None`` raises
+    without a card, and nothing was written."""
+    stream, cfg = _cpu_stream(), SubstreamConfig(n=3, L=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NEW_ENTRIES[entry](stream, cfg, tmp_path)
+    assert not list(tmp_path.glob("step_*"))
 
 
 def test_unported_layout_and_engines_raise():
