@@ -35,7 +35,19 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   the only ones on the card), clean and with each rung refused in turn,
   both layouts, and at L = 2049; the epoch path with a snapshot per epoch, killed after epoch 2
   and resumed from disk with one transient flake retried by the
-  ``ExecutionGuard``.
+  ``ExecutionGuard``;
+* the parallel-rounds engine: ``mwm_rounds`` at the paper config in the
+  generated order, bit-equal to the packed per-edge kernel on that order
+  (rounds, seconds, peak memory), ``mwm_pipeline(part1="rounds")`` beside
+  ``part1="kernel"``, and the blocked order (at full width if its rounds
+  fit in ROUNDS_BLOCKED_BUDGET_S, else at scale 16, saying why);
+  ``mwm_rounds_sharded`` on a 1x1 NCCL mesh at scale 16, equal to
+  ``mwm_rounds``;
+* the graph substrate: ``coarsen_by_matching`` on the paper stream
+  (through the packed per-edge kernel, counted) and at scale 12 equal to
+  the CPU run, ``gseq`` on a 20,000-edge prefix and the segment ops at
+  scale 16, card against CPU; the main path on the flickr standin
+  (``real_graph_standin``: n = 2^22, about 33 M edges), checked.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -64,6 +76,22 @@ PLAIN_PREFIX = 20_000
 WAVE_PLAIN_PREFIX = 200_000
 #: the scale of the blocked-order route through the wave kernels
 BLOCKED_WAVE_SCALE = 16
+#: the longest the rounds may take on the blocked paper stream before that order
+#: is run at ROUNDS_BLOCKED_FALLBACK_SCALE instead
+ROUNDS_BLOCKED_BUDGET_S = 60.0
+ROUNDS_BLOCKED_FALLBACK_SCALE = 16
+#: the rounds' peak device memory at the paper config must stay under this
+ROUNDS_PEAK_LIMIT = 40e9
+#: the scale of the 1x1 NCCL mesh's stream and of the segment ops' graph
+SHARDED_SCALE = 16
+SEGMENT_SCALE = 16
+#: the coarsening's card-against-CPU check, and G-SEQ's prefix
+COARSEN_CHECK_SCALE = 12
+GSEQ_PREFIX = 20_000
+#: the segment ops on the card against the CPU: a sum's error over its terms' absolute sum
+SEGMENT_RTOL = 1e-5
+#: the paper dataset whose standin runs the main path
+REAL_GRAPH = "flickr"
 
 
 def emit(phase, **fields):
@@ -1414,6 +1442,256 @@ def phase_epoch_snapshots(cfg, unpacked, epoch_full):
         raise AssertionError(f"epoch launches {full_launches} / {resumed_launches}")
 
 
+def _rounds(stream, cfg, max_rounds=0):
+    """``mwm_rounds`` (packed) timed with CUDA events, with its telemetry
+    counters and the peak device memory."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import mwm_rounds
+
+    tel = obs.Telemetry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, res = cuda_ms(lambda: mwm_rounds(stream, cfg, max_rounds=max_rounds, packed=True,
+                                         telemetry=tel))
+    c = tel.match_calls[-1].counters
+    return res, {"rounds": c["rounds.rounds"], "converged": c["rounds.converged"],
+                 "seconds": ms / 1e3, "ms_per_round": ms / max(c["rounds.rounds"], 1),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _equal_to_edges_kernel(res, stream, cfg, label):
+    """``res`` must equal the packed per-edge kernel on the same order."""
+    import torch
+
+    from repro_torch.kernels.substream_match.ops import substream_match
+
+    edges = substream_match(stream, cfg)
+    if not (torch.equal(res.assigned, edges.assigned)
+            and torch.equal(res.mb_packed, edges.mb_packed)):
+        raise AssertionError(f"mwm_rounds differs from the per-edge kernel ({label})")
+    return edges
+
+
+def phase_rounds_path(config, stream, cfg, main):
+    """The parallel-rounds engine at the paper config, generated order:
+    ``mwm_rounds`` bit-equal to the packed per-edge kernel, its rounds,
+    seconds and peak memory; ``mwm_pipeline(part1="rounds")`` beside the
+    main path's ``part1="kernel"``; then the blocked order, at full width
+    when its rounds fit in ROUNDS_BLOCKED_BUDGET_S, else at scale 16."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import lexicographic_order, merge_host, mwm_pipeline, permute_stream
+    from repro_torch.kernels import build
+
+    m = stream.num_edges
+    build.launches.clear()
+    res, gen = _rounds(stream, cfg)
+    launches = dict(build.launches)
+    if not gen["converged"]:
+        raise AssertionError("mwm_rounds stopped before its fixed point")
+    if gen["max_memory_allocated"] > ROUNDS_PEAK_LIMIT:
+        raise AssertionError(f"mwm_rounds peaked at {gen['max_memory_allocated']} bytes")
+    edges = _equal_to_edges_kernel(res, stream, cfg, "generated order")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, weight = mwm_pipeline(stream, cfg, part1="rounds")
+    pipeline_s = time.perf_counter() - t0
+    if not np.array_equal(idx, merge_host(stream, edges, cfg)):
+        raise AssertionError("mwm_pipeline(part1='rounds') differs from the per-edge kernel's merge")
+    del res, edges
+    budget_rounds = max(1, int(ROUNDS_BLOCKED_BUDGET_S / (gen["ms_per_round"] / 1e3)))
+    blocked = permute_stream(stream, lexicographic_order(stream, config.K))
+    res, blk = _rounds(blocked, cfg, max_rounds=budget_rounds)
+    blk.update(scale=config.scale, budget_rounds=budget_rounds)
+    if blk["converged"]:
+        _equal_to_edges_kernel(res, blocked, cfg, "blocked order")
+    else:
+        del res, blocked
+        blk["reason"] = (f"the blocked order needs more than {budget_rounds} rounds at "
+                         f"{gen['ms_per_round']:.1f} ms a round (> {ROUNDS_BLOCKED_BUDGET_S} s); "
+                         f"run at scale {ROUNDS_BLOCKED_FALLBACK_SCALE}")
+        print(f"rounds_path: {blk['reason']}", flush=True)
+        small, s_stream, s_cfg, _, _ = paper_stream(
+            dataclasses.replace(config, scale=ROUNDS_BLOCKED_FALLBACK_SCALE))
+        blocked = permute_stream(s_stream, lexicographic_order(s_stream, config.K))
+        res, blk["at_fallback_scale"] = _rounds(blocked, s_cfg)
+        _equal_to_edges_kernel(res, blocked, s_cfg, f"blocked order, scale {small.scale}")
+    del res, blocked
+    emit("rounds_path", config=config.name, scale=config.scale, L=cfg.L, n=cfg.n, m=m,
+         generated=gen, blocked=blk, launches=launches,
+         bit_equal_to_edges_kernel=True,
+         pipeline_seconds={"rounds": pipeline_s, "kernel": main["pipeline_s"]},
+         edges_per_s_pipeline={"rounds": m / pipeline_s, "kernel": m / main["pipeline_s"]},
+         matched_edges=int(idx.size), weight=weight)
+
+
+def phase_rounds_sharded(config):
+    """``mwm_rounds_sharded`` on a 1x1 NCCL mesh (world size 1, a file
+    store under ``build/``) at SHARDED_SCALE, equal to ``mwm_rounds``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import mwm_rounds, mwm_rounds_sharded
+    from repro_torch.distributed import RemeshPlan, build_mesh
+
+    _, stream, cfg, _, _ = paper_stream(dataclasses.replace(config, scale=SHARDED_SCALE))
+    want_ms, want = cuda_ms(lambda: mwm_rounds(stream, cfg))
+    store = ROOT / "build" / "rounds_sharded.store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    try:
+        mesh = build_mesh(RemeshPlan(data=1, model=1, pod=0, dropped_devices=0))
+        ms, got = cuda_ms(lambda: mwm_rounds_sharded(stream, cfg, mesh))
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    equal = torch.equal(got.assigned, want.assigned) and torch.equal(got.mb, want.mb)
+    emit("rounds_sharded", mesh={"data": 1, "model": 1}, backend="nccl", scale=SHARDED_SCALE,
+         L=cfg.L, m=stream.num_edges, seconds={"sharded": ms / 1e3, "mwm_rounds": want_ms / 1e3},
+         equal_to_mwm_rounds=equal)
+    if not equal:
+        raise AssertionError("mwm_rounds_sharded on a 1x1 mesh differs from mwm_rounds")
+
+
+def phase_real_graph(config):
+    """The main path on the flickr standin (RMAT at flickr's n rounded up to
+    a power of two, its m), checked with ``check_matching``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        EdgeStream, SubstreamConfig, check_matching, merge_host, mwm_blocked, mwm_pipeline,
+    )
+    from repro_torch.graph import PAPER_GRAPHS, real_graph_standin, uniform_weights
+    from repro_torch.graph.generators import standin_shape
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import device_plan
+
+    scale, edge_factor = standin_shape(REAL_GRAPH)
+    t0 = time.perf_counter()
+    src, dst = real_graph_standin(REAL_GRAPH, seed=config.seed)
+    w = uniform_weights(src.shape[0], config.L, config.eps, seed=config.seed)
+    gen_s = time.perf_counter() - t0
+    stream = EdgeStream.from_numpy(src, dst, w)
+    cfg = SubstreamConfig(n=1 << scale, L=config.L, eps=config.eps)
+    del src, dst, w
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    idx, weight = mwm_pipeline(stream, cfg, part1="kernel", K=config.K)
+    pipeline_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    if launches.get(kernel.NAME, 0) < 1:
+        raise AssertionError(f"the main path on {REAL_GRAPH} launched no {kernel.NAME}: {launches}")
+    res = mwm_blocked(stream, cfg, K=config.K, backend="kernel")
+    if not np.array_equal(merge_host(stream, res, cfg), idx):
+        raise AssertionError("the staged run disagrees with mwm_pipeline")
+    t0 = time.perf_counter()
+    check_matching(res, stream, cfg, merged=idx)
+    check_s = time.perf_counter() - t0
+    plan = device_plan(cfg.n, cfg.L)
+    m = stream.num_edges
+    emit("real_graph", graph=REAL_GRAPH, paper_n_m=PAPER_GRAPHS[REAL_GRAPH], scale=scale,
+         edge_factor=edge_factor, n=cfg.n, m=m, L=cfg.L, K=config.K,
+         bit_block_bytes=plan.nbytes, fits_l2=plan.fits_l2,
+         seconds={"generate_host": gen_s, "pipeline": pipeline_s, "check_matching": check_s},
+         edges_per_s_pipeline=m / pipeline_s, launches=launches,
+         matched_edges=int(idx.size), weight=weight, check_matching="passed")
+
+
+def phase_substrate(config, stream, cfg):
+    """The graph substrate on the card: ``coarsen_by_matching`` on the paper
+    stream (timed, counted: it launches the packed per-edge kernel) and at
+    COARSEN_CHECK_SCALE equal to the CPU run; ``gseq`` on a prefix, card
+    against CPU; the segment ops at SEGMENT_SCALE, card against CPU (the
+    maximum exact; atomics reorder the float32 sums, so a sum's error is
+    held to SEGMENT_RTOL of the sum of its terms' magnitudes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import graph
+    from repro_torch.core import gseq
+    from repro_torch.core.gseq import gseq_pass
+    from repro_torch.core.types import to_numpy
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+
+    out = {}
+    src, dst, w = (to_numpy(t) for t in (stream.src, stream.dst, stream.weight))
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    mapping, lo, _, _ = graph.coarsen_by_matching(src, dst, w, cfg.n)
+    coarsen_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    if launches.get(kernel.NAME, 0) != 1:
+        raise AssertionError(f"coarsen_by_matching launched {launches}, not one {kernel.NAME}")
+    out["coarsen"] = {"scale": config.scale, "m": int(src.size), "seconds": coarsen_s,
+                      "launches": launches, "coarse_n": int(mapping.max()) + 1,
+                      "coarse_m": int(lo.size)}
+    del src, dst, w, mapping, lo
+    s, d = graph.kronecker_graph(COARSEN_CHECK_SCALE, config.edge_factor, seed=config.seed)
+    ws = graph.uniform_weights(s.size, config.L, config.eps, seed=config.seed)
+    card = graph.coarsen_by_matching(s, d, ws, 1 << COARSEN_CHECK_SCALE)
+    host = graph.coarsen_by_matching(s, d, ws, 1 << COARSEN_CHECK_SCALE, device="cpu")
+    out["coarsen_check"] = {"scale": COARSEN_CHECK_SCALE, "m": int(s.size),
+                            "equal_to_cpu": all(np.array_equal(a, b) for a, b in zip(card, host))}
+    prefix = _head(stream, 0, GSEQ_PREFIX)
+    t0 = time.perf_counter()
+    kept = gseq_pass(prefix, cfg.n, cfg.eps)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kept_cpu = gseq_pass(prefix.to("cpu"), cfg.n, cfg.eps)
+    cpu_s = time.perf_counter() - t0
+    matched = gseq(prefix, cfg.n, cfg.eps)
+    out["gseq"] = {"m": GSEQ_PREFIX, "pass_seconds": {"card": card_s, "cpu": cpu_s},
+                   "pushed": int(kept_cpu.sum()), "matched_edges": int(matched.size),
+                   "equal_to_cpu": bool(torch.equal(kept.cpu(), kept_cpu)) and np.array_equal(
+                       matched, gseq(prefix.to("cpu"), cfg.n, cfg.eps, device="cpu"))}
+    s, d = graph.kronecker_graph(SEGMENT_SCALE, config.edge_factor, seed=config.seed)
+    n = 1 << SEGMENT_SCALE
+    rng = np.random.default_rng(config.seed)
+    feats = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+    scores = torch.from_numpy(rng.normal(size=s.size).astype(np.float32))
+    s, d = torch.from_numpy(s), torch.from_numpy(d)
+    on_card = [t.cuda() for t in (feats, scores, s, d)]
+    seg = {}
+    for reduce in ("sum", "mean", "max"):
+        ms, got = cuda_ms(lambda: graph.scatter_messages(on_card[0], on_card[2], on_card[3], n,
+                                                         reduce=reduce))
+        want = graph.scatter_messages(feats, s, d, n, reduce=reduce)
+        if reduce == "max":  # order-free: exact, -inf where a vertex receives nothing
+            seg[reduce] = {"ms": ms, "equal": bool(torch.equal(got.cpu(), want))}
+            continue
+        # atomics reorder the float32 sums: |error| <= rtol * (sum of |terms|)
+        size = graph.scatter_messages(feats.abs(), s, d, n, reduce=reduce)
+        err = float(((got.cpu() - want).abs() / size.clamp_min(1e-30)).max())
+        seg[reduce] = {"ms": ms, "max_err_over_abs_sum": err, "close": err <= SEGMENT_RTOL}
+    ms, got = cuda_ms(lambda: graph.segment_softmax(on_card[1], on_card[3], n))
+    want = graph.segment_softmax(scores, d, n)
+    err = float(((got.cpu() - want).abs() / want.abs().clamp_min(1e-30)).max())
+    seg["softmax"] = {"ms": ms, "max_rel_err": err, "close": err <= SEGMENT_RTOL}
+    seg["degrees_equal"] = bool(torch.equal(graph.degrees(on_card[2], on_card[3], n).cpu(),
+                                            graph.degrees(s, d, n)))
+    out["segment"] = {"scale": SEGMENT_SCALE, "m": int(s.numel()), "features": 16, "ops": seg}
+    emit("substrate", **out)
+    bad = [k for k in ("coarsen_check", "gseq") if not out[k]["equal_to_cpu"]]
+    bad += [k for k, v in seg.items() if k != "degrees_equal" and not v.get("close", v.get("equal"))]
+    if bad or not seg["degrees_equal"]:
+        raise AssertionError(f"the substrate on the card differs from the CPU: {bad}")
+    return launches[kernel.NAME]
+
+
 def main():
     import torch
 
@@ -1440,9 +1718,13 @@ def main():
     phase_main_telemetry(config, stream, cfg, main)
     del main["result"]
     phase_validate(stream, cfg)
+    phase_rounds_path(config, stream, cfg, main)
+    coarsen_launches = phase_substrate(config, stream, cfg)
     del stream
     phase_blocked_wave_route(config.K)
     phase_fallback()
+    phase_rounds_sharded(config)
+    phase_real_graph(config)
     source = "src/repro_torch/kernels/substream_match/csrc/"
     rows = [{
         "name": kernel.NAME,
@@ -1464,6 +1746,7 @@ def main():
         "launches_merge_device": merge["launches"],
         "merge_device_recorded_edges": merge["recorded_edges"],
         "merge_device_ms_L1": merge["ms"],
+        "launches_coarsen_by_matching": coarsen_launches,
     }]
     for name, line in ((kernel.MEGA_NAME, 519), (kernel.WAVES_NAME, 243)):
         err, t = wave_checks[name]

@@ -4,9 +4,13 @@ Public API:
   EdgeStream, SubstreamConfig, MatchingResult  — data types
   mwm_scan              — faithful Listing 1 Part 1 (CS-SEQ oracle)
   mwm_waves             — the same over conflict-free waves (plain oracle)
+  substream_matchings   — full [m, L] per-substream membership
   mwm_blocked           — Listing 2 blocked/lexicographic (SC-OPT path)
+  mwm_rounds(_sharded)  — deterministic parallel rounds (beyond-paper; the
+                          sharded one over torch.distributed)
   merge_host            — Part 2 greedy merge on the host (on the card:
                           repro_torch.kernels.substream_match.ops.merge_device)
+  gseq                  — Ghaffari (2+eps) baseline (G-SEQ)
   exact_mwm_weight      — networkx oracle (tests)
   mwm_pipeline          — end to end: Part 1 + Part 2 → matching + weight
   validate_stream / check_matching — input guard + result invariants
@@ -38,10 +42,12 @@ from repro_torch.core.executor import (
     RetriesExhaustedError,
     is_transient,
 )
-from repro_torch.core.matching import mwm_scan, mwm_waves
+from repro_torch.core.matching import mwm_scan, mwm_waves, substream_matchings
 from repro_torch.core.state import MatchState, fingerprint_for
 from repro_torch.core.blocked import mwm_blocked, lexicographic_order, permute_stream
+from repro_torch.core.rounds import mwm_rounds, mwm_rounds_sharded
 from repro_torch.core.merge import merge_host, matching_weight
+from repro_torch.core.gseq import gseq
 from repro_torch.core.exact import exact_mwm_weight
 
 
@@ -55,17 +61,14 @@ def mwm_pipeline(
 ):
     """End-to-end (4+eps)-approximate MWM. Returns (edge_indices, weight).
 
-    part1 in {'scan', 'waves', 'blocked', 'kernel'}: the CS-SEQ loop, the
-    plain wave engine (``kw`` to :func:`mwm_waves`), the blocked order
-    through the CS-SEQ loop, or the blocked order through the CUDA kernels
-    (the JAX package's ``"pallas"``; ``kw`` to ``substream_match``, e.g.
-    ``schedule="mega"`` or ``packed=False`` for the unpacked int8 block).
-    ``device=None`` runs on the card.
+    part1 in {'scan', 'waves', 'blocked', 'kernel', 'rounds'}: the CS-SEQ
+    loop, the plain wave engine (``kw`` to :func:`mwm_waves`), the blocked
+    order through the CS-SEQ loop, the blocked order through the CUDA
+    kernels (the JAX package's ``"pallas"``; ``kw`` to ``substream_match``,
+    e.g. ``schedule="mega"`` or ``packed=False`` for the unpacked int8
+    block), or the parallel rounds on the stream's own order. ``device=None``
+    runs on the card.
     """
-    if part1 == "rounds":
-        raise NotImplementedError(
-            f"part1={part1!r} is not ported yet (ROADMAP.md §1 item 7)"
-        )
     dev = resolve_device(device)
     if part1 == "scan":
         res = mwm_scan(stream, cfg, device=dev)
@@ -75,6 +78,8 @@ def mwm_pipeline(
         res = mwm_blocked(stream, cfg, K=K, backend="scan", device=dev)
     elif part1 == "kernel":
         res = mwm_blocked(stream, cfg, K=K, backend="kernel", device=dev, **kw)
+    elif part1 == "rounds":
+        res = mwm_rounds(stream, cfg, device=dev)
     else:
         raise ValueError(part1)
     idx = merge_host(stream, res, cfg)
@@ -98,11 +103,15 @@ __all__ = [
     "ValidationReport",
     "mwm_scan",
     "mwm_waves",
+    "substream_matchings",
     "mwm_blocked",
     "lexicographic_order",
     "permute_stream",
+    "mwm_rounds",
+    "mwm_rounds_sharded",
     "merge_host",
     "matching_weight",
+    "gseq",
     "exact_mwm_weight",
     "mwm_pipeline",
     "MatchState",

@@ -5,7 +5,8 @@ the same update over conflict-free waves (:func:`mwm_waves`).
 One pass over the edge stream; for every edge all ``L`` substreams are
 updated at once (the FPGA's bit-parallel matching-bit word). These are
 Python loops on tensors, meant for tests and for comparing a kernel with
-its plain version, not for speed.
+its plain version, not for speed. :func:`substream_matchings` gives
+every edge's membership in every substream's matching.
 """
 from __future__ import annotations
 
@@ -31,6 +32,15 @@ def greedy_scan(te: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, mb: torc
         mb[v] |= add
         added[i] = add
     return added
+
+
+def eligibility(stream, thr: torch.Tensor) -> torch.Tensor:
+    """bool [m, L]: ``w >= thr[i]`` for each edge and substream (Stage 4),
+    cleared for invalid edges and self-loops, built in place (one [m, L]
+    temporary)."""
+    te = stream.weight[:, None] >= thr[None, :]
+    te &= (stream.valid & (stream.src != stream.dst))[:, None]
+    return te
 
 
 def highest_lane(added: torch.Tensor) -> torch.Tensor:
@@ -60,12 +70,7 @@ def mwm_scan(
             assigned=torch.full((stream.num_edges,), -1, dtype=torch.int32, device=dev),
             mb=torch.zeros((0, cfg.L), dtype=torch.bool, device=dev),
         )
-    thr = torch.tensor(cfg.thresholds(), device=dev)
-    te = (
-        (stream.weight[:, None] >= thr)
-        & stream.valid[:, None]
-        & (stream.src != stream.dst)[:, None]
-    )
+    te = eligibility(stream, torch.tensor(cfg.thresholds(), device=dev))
     mb = (
         torch.zeros((cfg.n, cfg.L), dtype=torch.bool, device=dev)
         if mb0 is None
@@ -73,6 +78,25 @@ def mwm_scan(
     )
     added = greedy_scan(te, stream.src, stream.dst, mb)
     return MatchingResult(assigned=highest_lane(added), mb=mb)
+
+
+def substream_matchings(stream, cfg: SubstreamConfig, device=None) -> torch.Tensor:
+    """bool [m, L]: membership of each edge in each substream's matching M_i,
+    the ``add`` of every edge in :func:`mwm_scan`'s loop.
+
+    M_i (defined by the matching bits) is a superset of the recorded list
+    C_i: an edge can be matched in several substreams but is recorded in
+    one (Listing 1's ``has_added``). Invariant tests need the full M_i.
+    Invalid edges enter as vertex 0, where they add nothing.
+    """
+    dev = resolve_device(device)
+    stream = stream.to(dev)
+    if cfg.n == 0:
+        return torch.zeros((stream.num_edges, cfg.L), dtype=torch.bool, device=dev)
+    te = eligibility(stream, torch.tensor(cfg.thresholds(), device=dev))
+    src, dst = (torch.where(stream.valid, e, 0) for e in (stream.src, stream.dst))
+    mb = torch.zeros((cfg.n, cfg.L), dtype=torch.bool, device=dev)
+    return greedy_scan(te, src, dst, mb)
 
 
 def _wave_scan(u, v, w, ok, thr, mb):

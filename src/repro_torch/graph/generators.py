@@ -1,13 +1,26 @@
 """Graph generators (numpy).
 
-The paper evaluates on DIMACS-10 Kronecker power-law graphs (m ~= 48n),
-with weights drawn uniformly from [1, (1+eps)^(L-1)+1] with a fixed seed,
-as in §5.1.4. Same generators, and the same draws, as
+The paper evaluates on DIMACS-10 Kronecker power-law graphs (m ~= 48n) and
+KONECT/SNAP real-world graphs, with weights drawn uniformly from
+[1, (1+eps)^(L-1)+1] with a fixed seed, as in §5.1.4. Without network
+access the real graphs are replaced by RMAT standins of matched (n, m), the
+generator family DIMACS uses. Same generators, and the same draws, as
 ``repro.graph.generators``.
 """
 from __future__ import annotations
 
 import numpy as np
+
+#: (n, m) of the paper's Table 5 datasets, for standin generation
+PAPER_GRAPHS = {
+    "gowalla": (196_591, 950_327),
+    "flickr": (2_302_925, 33_140_017),
+    "livejournal1": (4_847_571, 68_993_773),
+    "orkut": (3_072_441, 117_184_899),
+    "stanford": (281_903, 2_312_497),
+    "berkeley": (685_230, 7_600_595),
+    "arxiv-hep-th": (27_770, 352_807),
+}
 
 
 def kronecker_graph(
@@ -47,6 +60,25 @@ def kronecker_graph(
     _, uniq = np.unique(key, return_index=True)
     uniq.sort()
     return src[uniq], dst[uniq]
+
+
+def standin_shape(name: str) -> tuple[int, int]:
+    """(Kronecker scale, edge factor) of a paper dataset's standin: the
+    least power of two holding its n, and its m over that many vertices."""
+    n, m = PAPER_GRAPHS[name]
+    scale = int(np.ceil(np.log2(n)))
+    return scale, max(1, int(round(m / (1 << scale))))
+
+
+def real_graph_standin(name: str, seed: int = 0, max_edges: int | None = None):
+    """RMAT standin matched to a paper dataset's (n, m), as (src, dst) int64
+    arrays over ``2**scale`` vertices (:func:`standin_shape`); ``max_edges``
+    keeps a prefix."""
+    scale, ef = standin_shape(name)
+    src, dst = kronecker_graph(scale, edge_factor=ef, seed=seed)
+    if max_edges is not None and src.shape[0] > max_edges:
+        src, dst = src[:max_edges], dst[:max_edges]
+    return src, dst
 
 
 def uniform_weights(m: int, L: int, eps: float, seed: int = 0) -> np.ndarray:

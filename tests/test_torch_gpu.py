@@ -636,3 +636,126 @@ def test_snapshots_and_guard_around_epochs_on_card(cuda, tmp_path):
     assert tel.counters.get("guard.retry") == 1 and clk.sleeps == [0.05]
     assert tel.counters.get("snapshot.restore.count") == 1
     assert build.launches[kernel.UNPACKED_NAME] == before + 2
+
+
+# --------------------------------------------------------------------------
+# The parallel-rounds engines, G-SEQ and the graph substrate on the card.
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_rounds_on_card_match_cpu(cuda, blocked):
+    """``mwm_rounds`` at scale 12 (L = 64) on the card equals the CPU run
+    and the packed per-edge kernel, in the generated and the blocked order;
+    in chunks too."""
+    from repro_torch.core import lexicographic_order, mwm_rounds, permute_stream
+    from repro_torch.core import rounds as rounds_mod
+
+    c = rmat_case(12, edge_factor=8, L=64, pad=5)
+    stream, cfg = _on(c, "cpu")
+    if blocked:
+        stream = permute_stream(stream, lexicographic_order(stream, 32))
+    want = mwm_rounds(stream, cfg, device="cpu")
+    got = mwm_rounds(stream.to(cuda), cfg, packed=True)
+    assert got.assigned.device.type == "cuda"
+    assert torch.equal(got.assigned.cpu(), want.assigned) and torch.equal(got.mb.cpu(), want.mb)
+    edges = substream_match(stream.to(cuda), cfg)
+    assert torch.equal(edges.assigned, got.assigned) and torch.equal(edges.mb_packed, got.mb_packed)
+    old = rounds_mod.CHUNK_ELEMENTS
+    rounds_mod.CHUNK_ELEMENTS = 1000 * cfg.L
+    try:
+        chunked = mwm_rounds(stream.to(cuda), cfg)
+    finally:
+        rounds_mod.CHUNK_ELEMENTS = old
+    assert torch.equal(chunked.assigned.cpu(), want.assigned)
+
+
+@pytest.mark.parametrize("dtype, reduce", [(torch.int32, "amin"), (torch.float32, "amax"),
+                                           (torch.int32, "amax")])
+def test_scatter_reductions_on_card(cuda, dtype, reduce):
+    """The CUDA build's ``scatter_reduce_`` for the types and reductions the
+    rounds (int32 amin) and ``segment_max`` (float32, int32 amax) use, on
+    an expanded index, equal to the CPU; and ``index_add_`` in float32
+    within 1e-5."""
+    g = torch.Generator().manual_seed(3)
+    n, m, L = 1000, 50_000, 64
+    idx = torch.randint(0, n, (m,), generator=g)
+    if dtype == torch.float32:
+        src = torch.randn((m, L), generator=g)
+        init = torch.full((n, L), float("-inf"))
+    else:
+        src = torch.randint(0, 1 << 30, (m, L), generator=g).to(dtype)
+        init = torch.full((n, L), torch.iinfo(dtype).max if reduce == "amin" else 0, dtype=dtype)
+    want = init.clone().scatter_reduce_(0, idx[:, None].expand(-1, L), src, reduce)
+    got = init.to(cuda).scatter_reduce_(0, idx.to(cuda)[:, None].expand(-1, L), src.to(cuda), reduce)
+    assert torch.equal(got.cpu(), want)
+    if dtype == torch.float32:
+        s = torch.zeros((n, L)).index_add_(0, idx, src)
+        s_card = torch.zeros((n, L), device=cuda).index_add_(0, idx.to(cuda), src.to(cuda))
+        torch.testing.assert_close(s_card.cpu(), s, rtol=1e-5, atol=1e-5)
+
+
+def test_segment_ops_on_card_match_cpu(cuda):
+    """Card against CPU: the maximum exactly; sums and means within 1e-5 of
+    the sum of their terms' magnitudes (atomics reorder the float32 sums,
+    and a segment's sum may cancel to near 0); softmax within rtol 1e-5."""
+    from repro_torch import graph
+
+    src, dst = graph.kronecker_graph(12, edge_factor=8, seed=2)
+    n = 1 << 12
+    rng = np.random.default_rng(2)
+    feats = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+    scores = torch.from_numpy(rng.normal(size=src.shape[0]).astype(np.float32))
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    for reduce in ("sum", "mean", "max"):
+        want = graph.scatter_messages(feats, s, d, n, reduce=reduce)
+        got = graph.scatter_messages(feats.to(cuda), s.to(cuda), d.to(cuda), n, reduce=reduce).cpu()
+        if reduce == "max":
+            assert torch.equal(got, want)
+            continue
+        size = graph.scatter_messages(feats.abs(), s, d, n, reduce=reduce)
+        assert ((got - want).abs() <= 1e-5 * size).all()
+    torch.testing.assert_close(graph.segment_softmax(scores.to(cuda), d.to(cuda), n).cpu(),
+                               graph.segment_softmax(scores, d, n), rtol=1e-5, atol=0)
+    assert torch.equal(graph.degrees(s.to(cuda), d.to(cuda), n).cpu(), graph.degrees(s, d, n))
+
+
+def test_coarsen_gseq_and_matchings_on_card_match_cpu(cuda):
+    """``coarsen_by_matching`` launches the packed per-edge kernel once and
+    equals the CPU run; ``gseq`` and ``substream_matchings`` on the card
+    equal the CPU."""
+    from repro_torch import graph
+    from repro_torch.core import gseq, substream_matchings
+
+    src, dst = graph.kronecker_graph(10, edge_factor=4, seed=4)
+    w = graph.uniform_weights(src.shape[0], 32, 0.1, seed=4)
+    before = build.launches[kernel.NAME]
+    got = graph.coarsen_by_matching(src, dst, w, 1 << 10)
+    assert build.launches[kernel.NAME] == before + 1
+    for a, b in zip(got, graph.coarsen_by_matching(src, dst, w, 1 << 10, device="cpu")):
+        np.testing.assert_array_equal(a, b)
+    c = rmat_case(9, edge_factor=4, L=16, pad=3)
+    stream, cfg = _on(c, "cpu")
+    np.testing.assert_array_equal(gseq(stream.to(cuda), cfg.n), gseq(stream, cfg.n, device="cpu"))
+    assert torch.equal(substream_matchings(stream.to(cuda), cfg).cpu(),
+                       substream_matchings(stream, cfg, device="cpu"))
+
+
+def test_sharded_rounds_on_a_one_card_nccl_mesh(cuda, tmp_path):
+    """A 1x1 NCCL mesh (world size 1, a file store) equals ``mwm_rounds``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import mwm_rounds, mwm_rounds_sharded
+    from repro_torch.distributed import RemeshPlan, build_mesh
+
+    c = rmat_case(10, edge_factor=8, L=64, pad=5)
+    stream, cfg = _on(c, cuda)
+    want = mwm_rounds(stream, cfg)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = build_mesh(RemeshPlan(data=1, model=1, pod=0, dropped_devices=0))
+        got = mwm_rounds_sharded(stream, cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert got.assigned.device.type == "cuda"
+    assert torch.equal(got.assigned, want.assigned) and torch.equal(got.mb, want.mb)

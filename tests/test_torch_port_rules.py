@@ -6,13 +6,25 @@ import pathlib
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.checkpoint import SnapshotManager
-from repro_torch.core import EdgeStream, ExecutionGuard, SubstreamConfig, mwm_pipeline
+from repro_torch.core import (
+    EdgeStream,
+    ExecutionGuard,
+    SubstreamConfig,
+    gseq,
+    mwm_pipeline,
+    mwm_rounds,
+    mwm_rounds_sharded,
+    substream_matchings,
+)
+from repro_torch.distributed import build_mesh, plan_remesh
+from repro_torch.graph import coarsen_by_matching
 from repro_torch.kernels.substream_match import kernel
 from repro_torch.kernels.substream_match.ops import (
     L2_BYTES,
@@ -117,12 +129,33 @@ def test_robustness_entry_points_default_to_the_card(monkeypatch, tmp_path, entr
     assert not list(tmp_path.glob("step_*"))
 
 
+SLICE_ENTRIES = {
+    "mwm_rounds": lambda s, c: mwm_rounds(s, c),
+    "mwm_pipeline_rounds": lambda s, c: mwm_pipeline(s, c, part1="rounds"),
+    "mwm_rounds_sharded": lambda s, c: mwm_rounds_sharded(s, c, types.SimpleNamespace(
+        device_type="cuda", get_group=lambda axis: pytest.fail("touched the mesh"))),
+    "build_mesh": lambda s, c: build_mesh(plan_remesh(1)),
+    "substream_matchings": lambda s, c: substream_matchings(s, c),
+    "gseq": lambda s, c: gseq(s, c.n),
+    "coarsen_by_matching": lambda s, c: coarsen_by_matching([0, 1], [1, 2], [2.0, 3.0], 3),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(SLICE_ENTRIES))
+def test_rounds_gseq_and_substrate_default_to_the_card(monkeypatch, entry):
+    """The rounds engines, G-SEQ, ``substream_matchings``, coarsening and
+    the mesh: ``device=None`` (for the sharded rounds, a mesh on the card)
+    raises without a card, before any work."""
+    stream, cfg = _cpu_stream(), SubstreamConfig(n=3, L=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SLICE_ENTRIES[entry](stream, cfg)
+
+
 def test_unported_layout_and_engines_raise():
     stream = _cpu_stream()
     with pytest.raises(ValueError, match="mb_layout"):
         SubstreamConfig(n=3, L=8, mb_layout="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mwm_pipeline(stream, SubstreamConfig(n=3, L=8), part1="rounds", device="cpu")
     with pytest.raises(ValueError):
         mwm_pipeline(stream, SubstreamConfig(n=3, L=8), part1="pallas", device="cpu")
 
