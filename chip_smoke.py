@@ -47,7 +47,14 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   (through the packed per-edge kernel, counted) and at scale 12 equal to
   the CPU run, ``gseq`` on a 20,000-edge prefix and the segment ops at
   scale 16, card against CPU; the main path on the flickr standin
-  (``real_graph_standin``: n = 2^22, about 33 M edges), checked.
+  (``real_graph_standin``: n = 2^22, about 33 M edges), checked;
+* the GNN training path: the sampled GIN trainer on the paper graph
+  (``coarsen_by_matching`` through the packed per-edge kernel, counted,
+  then sampled batches at the minibatch_lg dimensions, GIN at gin-tu's
+  width, 5 AdamW steps, step 1 held to the CPU); GIN at gin-tu's width on
+  the ogb_products dimensions (3 steps, ms per step, peak memory); EGNN,
+  MeshGraphNet and Equiformer-v2 at their published widths on the
+  molecule shape, one step each held to the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -92,6 +99,15 @@ GSEQ_PREFIX = 20_000
 SEGMENT_RTOL = 1e-5
 #: the paper dataset whose standin runs the main path
 REAL_GRAPH = "flickr"
+#: AdamW steps of the sampled GIN trainer on the paper graph, and of GIN at
+#: the ogb_products dimensions
+GNN_SAMPLED_STEPS = 5
+GNN_FULL_STEPS = 3
+#: a GNN step on the card against the CPU: the loss's relative error, and each
+#: gradient's largest error over its largest magnitude, or over 1e-3 where that
+#: is smaller (``grad_errors``; atomics reorder the sums)
+GNN_LOSS_RTOL = 1e-4
+GNN_GRAD_RTOL = 1e-3
 
 
 def emit(phase, **fields):
@@ -1692,6 +1708,182 @@ def phase_substrate(config, stream, cfg):
     return launches[kernel.NAME]
 
 
+def _held_to_cpu(label, model, batch, step):
+    """``step()`` on the card (host clock around it, synchronized), its loss
+    and gradients held to the same weights on the CPU for ``batch``."""
+    import torch
+
+    from repro_torch.testing.gnn_check import cpu_loss_and_grads, grad_errors
+
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = cpu_loss_and_grads(model, batch)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step()
+    loss = float(out["loss"])
+    card_s = time.perf_counter() - t0
+    errs = grad_errors(model, grads_cpu)
+    worst = max(errs, key=errs.get)
+    check = {"loss": loss, "loss_cpu": loss_cpu, "loss_rel_err": abs(loss - loss_cpu) / abs(loss_cpu),
+             "grad_err_over_max": errs[worst], "worst_grad": worst,
+             "grad_norm": float(out["grad_norm"]), "seconds": card_s, "cpu_seconds": cpu_s}
+    if not (check["loss_rel_err"] <= GNN_LOSS_RTOL and errs[worst] <= GNN_GRAD_RTOL):
+        raise AssertionError(f"{label}: the step on the card differs from the CPU: {check}")
+    return check
+
+
+def phase_gnn_sampled(config, stream, cfg):
+    """GIN at gin-tu's width trained on sampled batches of the paper graph
+    (the generated stream, symmetrized) at the minibatch_lg dimensions:
+    ``coarsen_by_matching`` (one launch of the packed per-edge kernel), the
+    CSR, the sampler (1,024 seeds, fanouts 15-10), then GNN_SAMPLED_STEPS
+    AdamW steps; step 1's loss and gradients held to the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import sampled_subgraph_sizes
+    from repro_torch.core.types import to_numpy
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.launch.gnn_train import SampledGINTrainer
+    from repro_torch.launch.steps import gnn_shape_config
+
+    arch = get_arch("gin-tu")
+    shape = arch.shapes["minibatch_lg"]
+    gcfg = gnn_shape_config(arch, shape)
+    n_pad, e_pad = sampled_subgraph_sizes(shape)
+    src, dst, w = (to_numpy(t) for t in (stream.src, stream.dst, stream.weight))
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    trainer = SampledGINTrainer(src, dst, w, cfg.n, gcfg, fanouts=shape.fanouts,
+                                n_seeds=shape.batch_nodes, n_pad=n_pad, e_pad=e_pad)
+    setup_s = time.perf_counter() - t0
+    del src, dst, w
+    steps = []
+    for i in range(GNN_SAMPLED_STEPS):
+        t0 = time.perf_counter()
+        batch, nn, ne = trainer.next_batch()
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        if i == 0:
+            check = _held_to_cpu("gnn_sampled", trainer.model, batch,
+                                 lambda: trainer.step(batch))
+            step_s, loss = check["seconds"], check["loss"]
+        else:
+            t0 = time.perf_counter()
+            loss = float(trainer.step(batch)["loss"])
+            step_s = time.perf_counter() - t0
+        steps.append({"nodes": nn, "edges": ne, "sample_merge_s": sample_s, "step_s": step_s,
+                      "loss": loss})
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    emit("gnn_sampled", arch="gin-tu", shape="minibatch_lg", config={
+             "n_layers": gcfg.n_layers, "d_hidden": gcfg.d_hidden, "d_in": gcfg.d_in,
+             "n_classes": gcfg.n_classes}, scale=config.scale, n=cfg.n,
+         m=stream.num_edges, n_pad=n_pad, e_pad=e_pad, coarsening=trainer.coarsening,
+         seconds={"setup": setup_s, "csr_sampler": trainer.csr_seconds}, steps=steps,
+         step1_vs_cpu=check, launches=launches)
+    if launches != {kernel.NAME: 1}:
+        raise AssertionError(f"the sampled trainer launched {launches}, not one {kernel.NAME}")
+    if not all(np.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"gnn_sampled: a loss is not finite: {steps}")
+    return launches[kernel.NAME]
+
+
+def phase_gnn_full():
+    """GIN at gin-tu's width on the ogb_products dimensions (2,449,152 nodes,
+    61,859,328 edges after padding, 100 features, 47 classes, no edge
+    chunks), a ``make_gnn_batch(seed=0)`` batch on the card: GNN_FULL_STEPS
+    AdamW steps, each timed with CUDA events, and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_gnn_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import (
+        gnn_batch_dims,
+        gnn_shape_config,
+        make_gnn_model,
+        make_gnn_train_step,
+    )
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    arch = get_arch("gin-tu")
+    shape = arch.shapes["ogb_products"]
+    gcfg = gnn_shape_config(arch, shape)
+    N, E = gnn_batch_dims(shape, gcfg.edge_chunk)
+    t0 = time.perf_counter()
+    batch = make_gnn_batch(N, E, gcfg.d_in, n_classes=shape.n_classes, seed=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    opt_cfg = AdamWConfig()
+    model = make_gnn_model(arch, shape)
+    opt = AdamW(model.parameters(), opt_cfg)
+    step = make_gnn_train_step(arch, shape, opt_cfg)
+    build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(GNN_FULL_STEPS):
+        t, out = cuda_ms(lambda: step(model, opt, batch))
+        ms.append(t)
+        losses.append(float(out["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.launches)
+    emit("gnn_full", arch="gin-tu", shape="ogb_products", n=N, e=E, valid_edges=int(
+             batch.edge_mask.sum()), d_in=gcfg.d_in, n_classes=gcfg.n_classes,
+         edge_chunk=gcfg.edge_chunk, seconds={"make_gnn_batch": gen_s}, step_ms=ms,
+         ms_per_step=float(np.median(ms[1:])), losses=losses, peak_bytes=peak,
+         launches=launches)
+    if not all(np.isfinite(losses)) or launches:
+        raise AssertionError(f"gnn_full: losses {losses}, launches {launches}")
+
+
+def phase_gnn_molecule():
+    """EGNN (4 x 64), MeshGraphNet (15 x 128) and Equiformer-v2 (12 x 128,
+    l_max 6, 8 heads) at their published widths on the molecule shape (128
+    graphs of 30 nodes and 64 edges, 16 features): one AdamW step each on
+    the card, its loss and gradients held to the CPU, and its peak memory."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_gnn_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import (
+        gnn_batch_dims,
+        gnn_shape_config,
+        make_gnn_model,
+        make_gnn_train_step,
+    )
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    out = {}
+    build.launches.clear()
+    for arch_id in ("egnn", "meshgraphnet", "equiformer-v2"):
+        arch = get_arch(arch_id)
+        shape = arch.shapes["molecule"]
+        gcfg = gnn_shape_config(arch, shape)
+        N, E = gnn_batch_dims(shape, gcfg.edge_chunk)
+        batch = make_gnn_batch(N, E, gcfg.d_in, d_out=gcfg.d_out, coords=True,
+                               n_graphs=shape.batch_graphs, seed=0)
+        model = make_gnn_model(arch, shape)
+        opt_cfg = AdamWConfig()
+        opt = AdamW(model.parameters(), opt_cfg)
+        step = make_gnn_train_step(arch, shape, opt_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        check = _held_to_cpu(arch_id, model, batch, lambda: step(model, opt, batch))
+        out[arch_id] = {"n": N, "e": E, "n_layers": gcfg.n_layers, "d_hidden": gcfg.d_hidden,
+                        **check, "peak_bytes": torch.cuda.max_memory_allocated()}
+    launches = dict(build.launches)
+    emit("gnn_molecule", shape="molecule", models=out, launches=launches)
+    if launches:
+        raise AssertionError(f"gnn_molecule launched {launches}")
+
+
 def main():
     import torch
 
@@ -1720,6 +1912,9 @@ def main():
     phase_validate(stream, cfg)
     phase_rounds_path(config, stream, cfg, main)
     coarsen_launches = phase_substrate(config, stream, cfg)
+    gnn_launches = phase_gnn_sampled(config, stream, cfg)
+    phase_gnn_full()
+    phase_gnn_molecule()
     del stream
     phase_blocked_wave_route(config.K)
     phase_fallback()
@@ -1747,6 +1942,7 @@ def main():
         "merge_device_recorded_edges": merge["recorded_edges"],
         "merge_device_ms_L1": merge["ms"],
         "launches_coarsen_by_matching": coarsen_launches,
+        "launches_gnn_train": gnn_launches,
     }]
     for name, line in ((kernel.MEGA_NAME, 519), (kernel.WAVES_NAME, 243)):
         err, t = wave_checks[name]

@@ -1,15 +1,19 @@
 """State carried across from the JAX package.
 
-The system has no weights: what crosses over is its input and its carried
-state, the edge stream, the float32 threshold vector, the matching bits
-(packed or dense), a resumable ``MatchState`` and the host-built wave
-schedule. Every function takes host numpy arrays (``np.asarray`` of the
-JAX package's arrays), never JAX objects, and keeps their bits.
+What crosses over: the matcher's input and carried state (the edge
+stream, the float32 threshold vector, the matching bits, packed or dense,
+a resumable ``MatchState`` and the host-built wave schedule), and the GNN
+models' parameters and AdamW state (a parameter pytree as nested dicts and
+lists, loaded into a module whose ``state_dict`` keys are the tree's
+paths). Every function takes host numpy arrays (``np.asarray`` of the JAX
+package's arrays), never JAX objects, and keeps their bits; the
+``*_to_reference`` functions give them back.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.state import MatchState
 from repro_torch.core.types import (
@@ -92,3 +96,92 @@ def result_to_numpy(result: MatchingResult):
     storage: mb_packed uint8 [n, ceil(L/8)], or mb bool [n, L] when dense."""
     bits = result.mb_packed if result.is_packed else result.mb
     return to_numpy(result.assigned), to_numpy(bits)
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of nested dicts and lists."""
+    if isinstance(tree, dict):
+        items = ((str(k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def _unflatten(flat: dict):
+    """Nested dicts from dotted paths, a dict whose keys are 0..k-1 a list."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        *heads, last = path.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(map(str, range(len(node)))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(root)
+
+
+def _load(tensors: dict, tree, what: str) -> None:
+    flat = _flatten(tree)
+    if set(flat) != set(tensors):
+        raise ValueError(f"{what}: keys differ: only in the reference "
+                         f"{sorted(set(flat) - set(tensors))}, only here "
+                         f"{sorted(set(tensors) - set(flat))}")
+    with torch.no_grad():
+        for name, t in tensors.items():
+            a = np.asarray(flat[name])
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{what}: {name} has shape {a.shape}, want {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)).to(t.dtype))
+
+
+def params_from_reference(module: nn.Module, tree) -> nn.Module:
+    """Load a JAX parameter pytree (nested dicts and lists of float32 numpy
+    arrays) into ``module``; its key set and every shape must equal the
+    module's."""
+    _load(dict(module.named_parameters()), tree, "params_from_reference")
+    return module
+
+
+def params_to_reference(module: nn.Module):
+    """The module's parameters as the reference's pytree of numpy arrays."""
+    return _unflatten({k: to_numpy(p) for k, p in module.named_parameters()})
+
+
+def opt_state_from_reference(opt, module: nn.Module, state: dict):
+    """Load a JAX AdamW state ``{m, v, count}`` (``repro.optim.adamw_init``'s
+    layout) into ``opt``, an :class:`repro_torch.optim.AdamW` over
+    ``module``'s parameters."""
+    params = dict(module.named_parameters())
+    for key in ("m", "v"):
+        moments = {}
+        for name, p in params.items():
+            st = opt.state[p]
+            if key not in st:
+                st[key] = torch.zeros_like(p, dtype=torch.float32)
+            moments[name] = st[key]
+        _load(moments, state[key], f"opt_state_from_reference[{key}]")
+    count = _exact("count", np.asarray(state["count"]).reshape(()), np.int32)
+    opt.count.copy_(torch.from_numpy(count))
+    return opt
+
+
+def opt_state_to_reference(opt, module: nn.Module) -> dict:
+    """``opt``'s state as the reference's ``{m, v, count}`` of numpy arrays."""
+    params = dict(module.named_parameters())
+    out = {key: _unflatten({k: to_numpy(opt.state[p][key]) for k, p in params.items()})
+           for key in ("m", "v")}
+    out["count"] = to_numpy(opt.count)
+    return out

@@ -1,0 +1,112 @@
+"""AdamW with float32 moments, the JAX package's arithmetic exactly.
+
+``repro.optim.adamw_update`` in the same order of operations:
+
+* clip by the global float32 norm, scale ``min(1, max_norm / max(norm,
+  1e-9))`` (``grad_clip=0`` skips it and reports a norm of 0);
+* an int32 ``count``; bias corrections ``1 - b ** count`` in float32;
+* ``p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``, the decay applied
+  to every parameter;
+* ``step`` returns the norm before clipping.
+
+``torch.optim.AdamW`` and ``clip_grad_norm_`` are not used: their epsilon
+placement and order of operations differ. The state per parameter is
+``{"m", "v"}`` plus one ``count`` (``AdamW.count``);
+``repro_torch.convert.opt_state_from_reference`` / ``opt_state_to_reference``
+carry it to and from the reference's ``{m, v, count}`` dict.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models.param import ArraySpec
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: Any = torch.float32
+
+
+def adamw_init_specs(param_spec_tree, cfg: AdamWConfig):
+    """The state's spec tree: moments with their parameters' shapes and
+    logical axes, and a scalar int32 count."""
+    def mom(tree):
+        if isinstance(tree, ArraySpec):
+            return ArraySpec(tree.shape, tree.logical, cfg.moment_dtype, "zeros")
+        if isinstance(tree, dict):
+            return {k: mom(v) for k, v in tree.items()}
+        return [mom(v) for v in tree]
+
+    return {"m": mom(param_spec_tree), "v": mom(param_spec_tree),
+            "count": ArraySpec((), (), torch.int32, "zeros")}
+
+
+def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
+    """``{m, v, count}`` for a dict of named parameters: zero moments of
+    ``cfg.moment_dtype`` and a zero int32 count."""
+    zeros = {k: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+             for k, p in params.items()}
+    device = next(iter(params.values())).device if params else None
+    return {"m": zeros, "v": {k: z.clone() for k, z in zeros.items()},
+            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def clip_by_global_norm(grads: list, max_norm: float):
+    """(clipped gradients, norm before clipping): the norm is the sqrt of
+    the sum, over the gradients in order, of each one's float32 sum of
+    squares."""
+    sq = sum(torch.sum(torch.square(g.float())) for g in grads)
+    norm = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return [(g * scale).to(g.dtype) for g in grads], norm
+
+
+class AdamW(torch.optim.Optimizer):
+    """The reference's AdamW over ``params`` (one group). ``step()`` takes
+    the gradients in ``p.grad`` and returns the global norm before
+    clipping, a float32 tensor on the parameters' device."""
+
+    def __init__(self, params, cfg: AdamWConfig = AdamWConfig()):
+        super().__init__(params, {"lr": cfg.lr})
+        self.cfg = cfg
+        first = self.param_groups[0]["params"][0]
+        self.count = torch.zeros((), dtype=torch.int32, device=first.device)
+
+    @torch.no_grad()
+    def step(self, closure=None, lr: float | None = None) -> torch.Tensor:
+        if closure is not None:
+            raise ValueError("AdamW.step takes no closure")
+        cfg = self.cfg
+        params = [p for g in self.param_groups for p in g["params"]]
+        lr = self.param_groups[0]["lr"] if lr is None else lr
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if cfg.grad_clip:
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        else:
+            gnorm = torch.zeros((), dtype=torch.float32, device=self.count.device)
+        self.count += 1
+        count = self.count.float()
+        b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=count.device), count)
+        b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=count.device), count)
+        for p, g in zip(params, grads):
+            st = self.state[p]
+            if "m" not in st:
+                st["m"] = torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+                st["v"] = torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+            g32, m32, v32, p32 = g.float(), st["m"].float(), st["v"].float(), p.float()
+            m_new = cfg.b1 * m32 + (1 - cfg.b1) * g32
+            v_new = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
+            upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
+            p.copy_((p32 - lr * (upd + cfg.weight_decay * p32)).to(p.dtype))
+            st["m"] = m_new.to(cfg.moment_dtype)
+            st["v"] = v_new.to(cfg.moment_dtype)
+        return gnorm

@@ -7,8 +7,9 @@ card against the same calls on the CPU; then the robustness and
 observability layers on the card: the per-edge kernels at L = 1 (the
 device merge's shape), ``merge_device``, every rung of the fallback
 ladder, the telemetry records of the three entries, ``validate``, and
-snapshots with the execution guard around the epoch executor. They skip
-without a CUDA device; on a machine with an NVIDIA card run
+snapshots with the execution guard around the epoch executor; and one
+train step of each GNN on the card against the same step on the CPU. They
+skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -759,3 +760,34 @@ def test_sharded_rounds_on_a_one_card_nccl_mesh(cuda, tmp_path):
         dist.destroy_process_group()
     assert got.assigned.device.type == "cuda"
     assert torch.equal(got.assigned, want.assigned) and torch.equal(got.mb, want.mb)
+
+
+@pytest.mark.parametrize("arch_id", ["gin-tu", "egnn", "meshgraphnet", "equiformer-v2"])
+def test_gnn_train_step_on_card_matches_cpu(cuda, arch_id):
+    """One train step of each GNN at its smoke config on the card, held to
+    the port on the CPU from the same weights: the loss within rtol 1e-4,
+    each gradient's largest error at most 1e-3 of its largest magnitude
+    (atomics reorder the float32 segment sums), or 1e-6 where that
+    magnitude is under 1e-3 (``grad_errors``' floor: a gradient that is
+    zero in exact arithmetic is rounding noise on both). TF32 stays off
+    (``torch.backends.cuda.matmul.allow_tf32`` at its default, False): its
+    10-bit mantissa would show as exactly this kind of error."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_gnn_batch
+    from repro_torch.launch.steps import _gnn_module, train_step
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.testing.gnn_check import cpu_loss_and_grads, grad_errors
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_config
+    batch = make_gnn_batch(48, 160, cfg.d_in, n_classes=getattr(cfg, "n_classes", 0)
+                           if arch_id == "gin-tu" else 0, d_out=getattr(cfg, "d_out", 1),
+                           coords=True, seed=1, device=cuda)
+    model = _gnn_module(arch).MODEL(cfg, device=cuda)
+    loss_cpu, grads_cpu = cpu_loss_and_grads(model, batch)
+    out = train_step(model, AdamW(model.parameters(), AdamWConfig(lr=1e-3)), batch)
+    assert out["loss"].device.type == "cuda"
+    np.testing.assert_allclose(float(out["loss"]), loss_cpu, rtol=1e-4)
+    errs = grad_errors(model, grads_cpu)
+    assert max(errs.values()) <= 1e-3, errs

@@ -23,8 +23,13 @@ from repro_torch.core import (
     mwm_rounds_sharded,
     substream_matchings,
 )
-from repro_torch.distributed import build_mesh, plan_remesh
+from repro_torch.configs import get_arch
+from repro_torch.data import RecsysPipeline, TokenPipeline, make_gnn_batch
+from repro_torch.distributed import build_mesh, constrain, plan_remesh, sharding_rules
 from repro_torch.graph import coarsen_by_matching
+from repro_torch.launch import gnn_train, steps
+from repro_torch.models import egnn, equiformer_v2, gin, meshgraphnet
+from repro_torch.optim import AdamWConfig
 from repro_torch.kernels.substream_match import kernel
 from repro_torch.kernels.substream_match.ops import (
     L2_BYTES,
@@ -138,18 +143,49 @@ SLICE_ENTRIES = {
     "substream_matchings": lambda s, c: substream_matchings(s, c),
     "gseq": lambda s, c: gseq(s, c.n),
     "coarsen_by_matching": lambda s, c: coarsen_by_matching([0, 1], [1, 2], [2.0, 3.0], 3),
+    "GIN": lambda s, c: gin.GIN(gin.GINConfig(n_layers=1, d_hidden=2, d_in=2, n_classes=2)),
+    "EGNN": lambda s, c: egnn.EGNN(egnn.EGNNConfig(n_layers=1, d_hidden=2, d_in=2)),
+    "MeshGraphNet": lambda s, c: meshgraphnet.MeshGraphNet(
+        meshgraphnet.MGNConfig(n_layers=1, d_hidden=2, d_in=2)),
+    "EquiformerV2": lambda s, c: equiformer_v2.EquiformerV2(
+        equiformer_v2.EqV2Config(n_layers=1, d_hidden=2, l_max=1, d_in=2)),
+    "make_gnn_batch": lambda s, c: make_gnn_batch(4, 6, 2),
+    "make_gnn_model": lambda s, c: steps.make_gnn_model(
+        get_arch("gin-tu"), get_arch("gin-tu").shapes["molecule"]),
+    "make_gnn_train_step": lambda s, c: steps.make_gnn_train_step(
+        get_arch("gin-tu"), get_arch("gin-tu").shapes["molecule"], AdamWConfig()),
+    "SampledGINTrainer": lambda s, c: gnn_train.SampledGINTrainer(
+        [0, 1], [1, 2], [2.0, 3.0], 3),
+    "gnn_train_main": lambda s, c: gnn_train.main(["--steps", "1", "--scale", "4"]),
+    "TokenPipeline": lambda s, c: TokenPipeline(10, 2, 4).batch_at(0),
+    "RecsysPipeline": lambda s, c: RecsysPipeline(10, 2, 4, 1, 3).batch_at(0),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(SLICE_ENTRIES))
 def test_rounds_gseq_and_substrate_default_to_the_card(monkeypatch, entry):
-    """The rounds engines, G-SEQ, ``substream_matchings``, coarsening and
-    the mesh: ``device=None`` (for the sharded rounds, a mesh on the card)
+    """The rounds engines, G-SEQ, ``substream_matchings``, coarsening, the
+    mesh, the GNN models, batches, train step and trainer, and the
+    pipelines: ``device=None`` (for the sharded rounds, a mesh on the card)
     raises without a card, before any work."""
     stream, cfg = _cpu_stream(), SubstreamConfig(n=3, L=8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SLICE_ENTRIES[entry](stream, cfg)
+
+
+def test_unported_archs_and_placement_raise():
+    """The LM and recsys archs are known but not ported; the models'
+    sharding constraints are a no-op without rules and raise under them
+    (their DTensor placement is not ported)."""
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_arch("gemma-7b")
+    x = torch.ones(3)
+    assert constrain(x, "nodes") is x
+    with sharding_rules({"nodes": "data"}):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            constrain(x, "nodes")
+    assert constrain(x, "nodes") is x
 
 
 def test_unported_layout_and_engines_raise():
