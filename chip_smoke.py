@@ -54,7 +54,17 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   width, 5 AdamW steps, step 1 held to the CPU); GIN at gin-tu's width on
   the ogb_products dimensions (3 steps, ms per step, peak memory); EGNN,
   MeshGraphNet and Equiformer-v2 at their published widths on the
-  molecule shape, one step each held to the CPU.
+  molecule shape, one step each held to the CPU (Equiformer-v2 at 3 of its
+  12 layers there, its 12-layer step timed on the card);
+* the serving paths: gemma-7b at its published config (28 layers, bf16
+  weights) prefilling two 32,768-token requests and decoding 32 greedy
+  steps into one cache, decode step 1 held to ``backbone`` on 32,769
+  tokens; gemma-7b, internlm2-20b, minicpm-2b and moonshot-v1-16b-a3b at
+  their published widths cut to 2 layers, float32, held to the CPU;
+  BERT4Rec at its published config on serve_p99, serve_bulk and
+  retrieval_cand, a serve_p99 batch held to the CPU. They launch none of
+  the six kernels (attention, MoE dispatch and the retrieval product are
+  plain PyTorch, as they are plain XLA in the reference).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -108,6 +118,26 @@ GNN_FULL_STEPS = 3
 #: is smaller (``grad_errors``; atomics reorder the sums)
 GNN_LOSS_RTOL = 1e-4
 GNN_GRAD_RTOL = 1e-3
+#: the depth at which Equiformer-v2's molecule step is held to the CPU
+EQV2_HELD_LAYERS = 3
+#: bf16 peak of the tensor cores (dense), for the LM's bounds
+BF16_OPS_PER_S = 989e12
+#: LM serving (gemma-7b at its published config): requests, the cache's slots,
+#: greedy decode steps; decode step 1 against ``backbone`` (error over the largest
+#: logit), and the full-width 2-layer models on the card against the CPU
+LM_BATCH = 2
+LM_MAX_LEN = 32_800
+LM_DECODE_STEPS = 32
+LM_DECODE_RTOL = 3e-2
+LM_HELD_ARCHS = ("gemma-7b", "internlm2-20b", "minicpm-2b", "moonshot-v1-16b-a3b")
+LM_HELD_LAYERS = 2
+LM_HELD_PROMPT = 256
+LM_HELD_STEPS = 4
+LM_HELD_RTOL = 1e-4
+#: BERT4Rec serving: serve_p99 batches timed, and a serve_p99 batch's scores on the
+#: card against the CPU (error over the largest magnitude)
+RECSYS_P99_BATCHES = 20
+RECSYS_RTOL = 1e-5
 
 
 def emit(phase, **fields):
@@ -1846,13 +1876,20 @@ def phase_gnn_molecule():
     """EGNN (4 x 64), MeshGraphNet (15 x 128) and Equiformer-v2 (12 x 128,
     l_max 6, 8 heads) at their published widths on the molecule shape (128
     graphs of 30 nodes and 64 edges, 16 features): one AdamW step each on
-    the card, its loss and gradients held to the CPU, and its peak memory."""
+    the card, its loss and gradients held to the CPU, and its peak memory.
+    Equiformer-v2 is held to the CPU at EQV2_HELD_LAYERS layers (its 12 take
+    ~110 s there); its 12-layer step runs on the card after it, timed, its
+    loss finite."""
+    import dataclasses
+
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import make_gnn_batch
     from repro_torch.kernels import build
     from repro_torch.launch.steps import (
+        _gnn_module,
         gnn_batch_dims,
         gnn_shape_config,
         make_gnn_model,
@@ -1871,17 +1908,304 @@ def phase_gnn_molecule():
                                n_graphs=shape.batch_graphs, seed=0)
         model = make_gnn_model(arch, shape)
         opt_cfg = AdamWConfig()
-        opt = AdamW(model.parameters(), opt_cfg)
         step = make_gnn_train_step(arch, shape, opt_cfg)
+        held = model
+        if arch_id == "equiformer-v2":
+            held = _gnn_module(arch).MODEL(dataclasses.replace(gcfg, n_layers=EQV2_HELD_LAYERS))
+        opt = AdamW(held.parameters(), opt_cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        check = _held_to_cpu(arch_id, model, batch, lambda: step(model, opt, batch))
-        out[arch_id] = {"n": N, "e": E, "n_layers": gcfg.n_layers, "d_hidden": gcfg.d_hidden,
-                        **check, "peak_bytes": torch.cuda.max_memory_allocated()}
+        check = _held_to_cpu(arch_id, held, batch, lambda: step(held, opt, batch))
+        row = {"n": N, "e": E, "n_layers": gcfg.n_layers, "d_hidden": gcfg.d_hidden, **check,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        if held is not model:
+            del held, opt
+            opt = AdamW(model.parameters(), opt_cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = float(step(model, opt, batch)["loss"])
+            row["held_n_layers"] = EQV2_HELD_LAYERS
+            row["full_depth"] = {"seconds": time.perf_counter() - t0, "loss": loss,
+                                 "peak_bytes": torch.cuda.max_memory_allocated()}
+            if not np.isfinite(loss):
+                raise AssertionError(f"{arch_id}: the {gcfg.n_layers}-layer loss is {loss}")
+        out[arch_id] = row
     launches = dict(build.launches)
     emit("gnn_molecule", shape="molecule", models=out, launches=launches)
     if launches:
         raise AssertionError(f"gnn_molecule launched {launches}")
+
+
+def _lm_bytes_and_ops(cfg, B, S, cache_len):
+    """(bytes a decode step must move, operations a prefill must do): the
+    weights once (less the embedding rows not read) and the filled cache
+    slots, k and v, once; 2 x tokens x the weights multiplied, plus the
+    causal half of the attention products (QK and PV)."""
+    import math
+
+    from repro_torch.models.param import iter_specs
+    from repro_torch.models.transformer import param_specs
+
+    specs = dict(iter_specs(param_specs(cfg)))
+    nbytes = {k: math.prod(v.shape) * v.dtype.itemsize for k, v in specs.items()}
+    item = specs["embed"].dtype.itemsize
+    weights = sum(nbytes.values()) - nbytes["embed"] + B * cfg.d_model * item
+    cache = 2 * cfg.n_layers * B * cache_len * cfg.n_kv * cfg.d_head * item
+    matmul = sum(math.prod(specs[f"layers.{k}"].shape) for k in ("wq", "wk", "wv", "wo", "w1", "w2"))
+    ops = 2 * B * S * matmul + 2 * B * cfg.d_model * cfg.vocab_padded
+    ops += 2 * 2 * B * cfg.n_layers * cfg.n_heads * cfg.d_head * S * (S + 1) // 2
+    return weights + cache, ops
+
+
+def phase_lm_serve():
+    """gemma-7b at its published config (28 layers, d 3072, vocab 256,000,
+    bf16 weights; its stream float32, as the reference's), weights drawn on
+    the card from a seeded CUDA generator; LM_BATCH requests of 32,768
+    tokens from ``TokenPipeline(seed=0)``: ``make_lm_prefill`` at
+    prefill_32k's overrides into a cache of LM_MAX_LEN slots, then
+    LM_DECODE_STEPS greedy ``decode_step``s, each committing its k/v in
+    place at ``32768 + t``. Then, the cache freed, the reference's own
+    contract (``test_arch_smoke.py``): decode step 1's logits of request 0
+    against ``backbone`` on its 32,769 tokens (a ragged last attention
+    chunk) through ``lm_head``, within LM_DECODE_RTOL of the largest logit;
+    and the standard deviation of layer 0's attention scores on the first
+    1,024 tokens (the attention projections' fan-in, ROADMAP.md §3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import lm_shape_config, make_lm_prefill
+    from repro_torch.models import transformer as tfm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch = get_arch("gemma-7b")
+    cfg = arch.config
+    pshape, dshape = arch.shapes["prefill_32k"], arch.shapes["decode_32k"]
+    S = pshape.seq_len
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = tfm.Transformer(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    tokens = TokenPipeline(vocab=cfg.vocab, batch=LM_BATCH, seq_len=S, seed=0).batch_at(0)
+    prefill = make_lm_prefill(arch, pshape, max_len=LM_MAX_LEN)
+    pcfg, dcfg = lm_shape_config(arch, pshape), lm_shape_config(arch, dshape)
+    torch.cuda.synchronize()
+    build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, (cache, logits) = cuda_ms(lambda: prefill(model, {"tokens": tokens}))
+    finite = bool(torch.isfinite(logits).all())
+    token = logits.argmax(-1)
+    first_token = token.clone()
+
+    def decode(pos):
+        lg, (k, v) = tfm.decode_step(model, cache, token, pos, dcfg)
+        cache["k"][:, :, pos] = k[:, :, 0]
+        cache["v"][:, :, pos] = v[:, :, 0]
+        return lg
+
+    step_ms, first = [], None
+    for t in range(LM_DECODE_STEPS):
+        ms, lg = cuda_ms(lambda: decode(S + t))
+        step_ms.append(ms)
+        finite &= bool(torch.isfinite(lg).all())
+        if t == 0:
+            first = lg[0].float().cpu()
+        token = lg.argmax(-1)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.launches)
+    del cache
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        seq = torch.cat([tokens[0], first_token[:1].to(tokens.dtype)])[None]  # 32,769 tokens
+        ref = tfm.lm_logits(model, tfm.backbone(model, seq, pcfg)[:, -1], dcfg).float().cpu()[0]
+        lp = model.layer_params(0)
+        n = min(1024, S)
+        h = tfm.rmsnorm(tfm._embed(model, tokens[:1, :n]), lp["ln1"], cfg.norm_eps)
+        q, k, _ = tfm._qkv(h, lp, cfg, torch.arange(n, device=h.device)[None], model.rope_freqs)
+        score_std = float(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).std()
+                          / np.sqrt(cfg.d_head))
+    check_s = time.perf_counter() - t0
+    scale = float(ref.abs().max())
+    err = float((first - ref).abs().max()) / scale
+    decode_ms = float(np.median(step_ms[1:]))
+    step_bytes, prefill_ops = _lm_bytes_and_ops(cfg, LM_BATCH, S, S + LM_DECODE_STEPS // 2)
+    emit("lm_serve", arch="gemma-7b", params=cfg.param_count(), n_layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, batch=LM_BATCH, prompt=S, max_len=LM_MAX_LEN,
+         attn_chunk=pcfg.attn_chunk, decode_steps=LM_DECODE_STEPS,
+         reduced={"prefill_32k.global_batch": "32 -> 2", "decode_32k.global_batch": "128 -> 2",
+                  "why": "one card holds 80 GB: 18.65 GB of weights and 15.0 GB of KV cache "
+                         "a 32,768-token request"},
+         seconds={"build_on_card": build_s, "check": check_s},
+         prefill_ms=prefill_ms, prefill_tokens_per_s=LM_BATCH * S / (prefill_ms / 1e3),
+         prefill_ops=prefill_ops, prefill_bound_ms_f32=prefill_ops / F32_OPS_PER_S * 1e3,
+         prefill_bound_ms_bf16=prefill_ops / BF16_OPS_PER_S * 1e3,
+         decode_step_ms=step_ms, decode_ms=decode_ms,
+         decode_tokens_per_s=LM_BATCH / (decode_ms / 1e3), decode_step_bytes=step_bytes,
+         decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3, peak_bytes=peak,
+         resident_before_bytes=resident, finite=finite,
+         decode_vs_backbone_err_over_max=err, max_abs_logit=scale,
+         layer0_score_std=score_std, launches=launches)
+    if launches or not finite or err > LM_DECODE_RTOL:
+        raise AssertionError(f"lm_serve: launches {launches}, finite {finite}, "
+                             f"decode vs backbone {err} (limit {LM_DECODE_RTOL})")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_lm_held_to_cpu():
+    """gemma-7b, internlm2-20b, minicpm-2b and moonshot-v1-16b-a3b at their
+    published widths cut to LM_HELD_LAYERS layers, float32, built on the CPU
+    from seed 0 and copied to the card: ``prefill`` of 2 x LM_HELD_PROMPT
+    tokens and LM_HELD_STEPS decode steps (the pipeline's next tokens) on
+    both; each logit's error over the largest magnitude, TF32 off."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tfm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    build.launches.clear()
+    for arch_id in LM_HELD_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch_id).config, n_layers=LM_HELD_LAYERS,
+                                  param_dtype=torch.float32)
+        t0 = time.perf_counter()
+        host = tfm.Transformer(cfg, device="cpu", seed=0)
+        build_s = time.perf_counter() - t0
+        card = tfm.Transformer(cfg, generator=torch.Generator("cuda").manual_seed(0))
+        card.load_state_dict(host.state_dict())
+        tokens = TokenPipeline(vocab=cfg.vocab, batch=2, seq_len=LM_HELD_PROMPT + LM_HELD_STEPS,
+                               seed=0, device="cpu").batch_at(0)
+        runs, secs = {}, {}
+        for name, model in (("cpu", host), ("cuda", card)):
+            dev = model.embed.device
+            t0 = time.perf_counter()
+            cache, last = tfm.prefill(model, tokens[:, :LM_HELD_PROMPT].to(dev),
+                                      max_len=LM_HELD_PROMPT + LM_HELD_STEPS)
+            logits = [tfm.lm_logits(model, last).detach()]
+            for t in range(LM_HELD_STEPS):
+                pos = LM_HELD_PROMPT + t
+                lg, (k, v) = tfm.decode_step(model, cache, tokens[:, pos].to(dev), pos)
+                cache["k"][:, :, pos] = k[:, :, 0]
+                cache["v"][:, :, pos] = v[:, :, 0]
+                logits.append(lg)
+            runs[name] = torch.stack(logits).float().cpu()
+            secs[name] = time.perf_counter() - t0
+        want = runs["cpu"]
+        err = float((runs["cuda"] - want).abs().max() / want.abs().max())
+        out[arch_id] = {"params": cfg.param_count(), "d_model": cfg.d_model,
+                        "err_over_max": err, "finite": bool(torch.isfinite(runs["cuda"]).all()),
+                        "cpu_build_s": build_s, "cpu_s": secs["cpu"], "card_s": secs["cuda"]}
+        del host, card, cache
+        torch.cuda.empty_cache()
+    launches = dict(build.launches)
+    emit("lm_held_to_cpu", n_layers=LM_HELD_LAYERS, prompt=LM_HELD_PROMPT,
+         decode_steps=LM_HELD_STEPS, dtype="float32", models=out, launches=launches)
+    bad = {k: v for k, v in out.items() if not (v["finite"] and v["err_over_max"] <= LM_HELD_RTOL)}
+    if bad or launches:
+        raise AssertionError(f"lm_held_to_cpu: {bad}, launches {launches}")
+
+
+def phase_recsys_serve():
+    """BERT4Rec at its published config (1,048,576 items x 64, 2 blocks, 2
+    heads, seq 200, float32), built from seed 0, on its three serving
+    shapes through ``make_recsys_step``: serve_p99 (batches of 512 users,
+    RECSYS_P99_BATCHES timed after one warm-up), serve_bulk (262,144 users
+    in 64 chunks of 4,096, each a 17.2 GB block of scores, top 100) and
+    retrieval_cand (1 user x 1,000,000 candidates drawn with replacement,
+    top 100); then one serve_p99 batch's scores and top 100 on the card
+    against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_recsys_step, sharded_topk
+    from repro_torch.models import bert4rec as b4r
+
+    arch = get_arch("bert4rec")
+    cfg = arch.config
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = b4r.Bert4Rec(cfg, device="cpu", seed=0)
+    model = b4r.Bert4Rec(cfg, seed=0)  # the same draws, copied to the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def pipe(shape, seed):
+        return RecsysPipeline(cfg.item_vocab, shape.batch, cfg.seq_len, cfg.n_mask,
+                              cfg.n_negatives, cfg.n_context, seed=seed)
+
+    out = {}
+    build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    shape = arch.shapes["serve_p99"]
+    step = make_recsys_step(arch, shape)
+    p99 = pipe(shape, 0)
+    step(model, p99.batch_at(RECSYS_P99_BATCHES))  # warm-up
+    ms = []
+    for i in range(RECSYS_P99_BATCHES):
+        batch = p99.batch_at(i)
+        torch.cuda.synchronize()
+        t, (vals, idxs) = cuda_ms(lambda: step(model, batch))
+        ms.append(t)
+    out["serve_p99"] = {"batch": shape.batch, "batch_ms": ms, "median_ms": float(np.median(ms)),
+                        "p99_ms": float(np.percentile(ms, 99)),
+                        "finite": bool(torch.isfinite(vals).all())}
+    shape = arch.shapes["serve_bulk"]
+    t0 = time.perf_counter()
+    batch = pipe(shape, 1).batch_at(0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t, (vals, idxs) = cuda_ms(lambda: make_recsys_step(arch, shape)(model, batch))
+    out["serve_bulk"] = {"users": shape.batch, "chunks": shape.batch // 4096, "seconds": t / 1e3,
+                         "users_per_s": shape.batch / (t / 1e3), "batch_gen_s": gen_s,
+                         "out_shape": list(vals.shape), "finite": bool(torch.isfinite(vals).all())}
+    del batch, vals, idxs
+    shape = arch.shapes["retrieval_cand"]
+    batch = pipe(shape, 2).batch_at(0)
+    batch["candidates"] = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.item_vocab, shape.n_candidates).astype(np.int32)).cuda()
+    rstep = make_recsys_step(arch, shape)
+    rstep(model, batch)
+    t, (vals, idxs) = cuda_ms(lambda: rstep(model, batch))
+    out["retrieval_cand"] = {"candidates": shape.n_candidates, "ms": t,
+                             "finite": bool(torch.isfinite(vals).all())}
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.launches)
+    batch = p99.batch_at(0)
+    with torch.inference_mode():
+        scores = b4r.serve_scores(model, batch["item_ids"], batch["context_ids"])
+        vals, idxs = sharded_topk(scores, 100)
+        t0 = time.perf_counter()
+        hb = {k: v.cpu() for k, v in batch.items()}
+        want = b4r.serve_scores(host, hb["item_ids"], hb["context_ids"])
+        wvals, widxs = sharded_topk(want, 100)
+        cpu_s = time.perf_counter() - t0
+    scale = float(want.abs().max())
+    check = {"scores_err_over_max": float((scores.cpu() - want).abs().max()) / scale,
+             "top100_err_over_max": float((vals.cpu() - wvals).abs().max()) / scale,
+             "top100_same_index_share": float((idxs.cpu() == widxs).float().mean()),
+             "cpu_seconds": cpu_s}
+    emit("recsys_serve", arch="bert4rec", items=cfg.item_vocab, embed_dim=cfg.embed_dim,
+         seq_len=cfg.seq_len, seconds={"build": build_s}, shapes=out, peak_bytes=peak,
+         serve_p99_vs_cpu=check, launches=launches)
+    finite = all(v["finite"] for v in out.values())
+    if (launches or not finite or check["scores_err_over_max"] > RECSYS_RTOL
+            or check["top100_err_over_max"] > RECSYS_RTOL):
+        raise AssertionError(f"recsys_serve: launches {launches}, finite {finite}, {check}")
 
 
 def main():
@@ -1920,6 +2244,9 @@ def main():
     phase_fallback()
     phase_rounds_sharded(config)
     phase_real_graph(config)
+    phase_lm_serve()
+    phase_lm_held_to_cpu()
+    phase_recsys_serve()
     source = "src/repro_torch/kernels/substream_match/csrc/"
     rows = [{
         "name": kernel.NAME,

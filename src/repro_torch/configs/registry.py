@@ -2,9 +2,8 @@
 
 Each arch module registers an :class:`ArchSpec` carrying its exact
 published config, its shape set and a reduced smoke config; the JAX
-package's ``repro.configs.registry``. The four GNNs are ported; the LM
-and recsys archs of the reference are known by id and refused with a
-``KeyError`` that says so (ROADMAP.md §1 item 14).
+package's ``repro.configs.registry``, with all ten of its archs: the five
+LMs, the four GNNs and BERT4Rec.
 """
 from __future__ import annotations
 
@@ -12,11 +11,6 @@ import dataclasses
 from typing import Any, Optional
 
 ARCHS: dict[str, "ArchSpec"] = {}
-
-#: archs of the JAX package whose models are not ported yet
-NOT_PORTED = ("bert4rec", "gemma-7b", "grok-1-314b", "internlm2-20b", "minicpm-2b",
-              "moonshot-v1-16b-a3b")
-
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
@@ -58,9 +52,6 @@ def register(spec: ArchSpec) -> ArchSpec:
 def get_arch(arch_id: str) -> ArchSpec:
     import repro_torch.configs  # noqa: F401 — populates ARCHS
 
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP.md §1 item 14); "
-                       f"ported: {sorted(ARCHS)}")
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
@@ -78,6 +69,7 @@ LM_SHAPES = {
     "train_4k": ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
     "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
     "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+    # decode against a 512k cache is linear in cache length
     "long_500k": ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
 }
 

@@ -2,14 +2,16 @@
 
 What crosses over: the matcher's input and carried state (the edge
 stream, the float32 threshold vector, the matching bits, packed or dense,
-a resumable ``MatchState`` and the host-built wave schedule), and the GNN
-models' parameters and AdamW state (a parameter pytree as nested dicts and
-lists, loaded into a module whose ``state_dict`` keys are the tree's
-paths). Every function takes host numpy arrays (``np.asarray`` of the JAX
+a resumable ``MatchState`` and the host-built wave schedule), the models'
+configs and parameters (a parameter pytree as nested dicts and lists,
+loaded into a module whose ``state_dict`` keys are the tree's paths; the
+transformer's RoPE frequency vector as a buffer) and AdamW state. Every function takes host numpy arrays (``np.asarray`` of the JAX
 package's arrays), never JAX objects, and keeps their bits; the
 ``*_to_reference`` functions give them back.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,6 +26,8 @@ from repro_torch.core.types import (
     to_numpy,
 )
 from repro_torch.graph.waves import WaveSchedule
+from repro_torch.models.bert4rec import Bert4RecConfig
+from repro_torch.models.transformer import TransformerConfig
 
 
 def _exact(name: str, a, dtype) -> np.ndarray:
@@ -147,11 +151,22 @@ def _load(tensors: dict, tree, what: str) -> None:
             t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)).to(t.dtype))
 
 
-def params_from_reference(module: nn.Module, tree) -> nn.Module:
+def params_from_reference(module: nn.Module, tree, buffers: dict | None = None) -> nn.Module:
     """Load a JAX parameter pytree (nested dicts and lists of float32 numpy
     arrays) into ``module``; its key set and every shape must equal the
-    module's."""
+    module's. ``buffers`` ({name: float32 array}) replaces buffers of the
+    module bit for bit: the reference's jitted RoPE frequencies as
+    ``{"rope_freqs": ...}`` (``models/transformer.py::rope_freqs``)."""
     _load(dict(module.named_parameters()), tree, "params_from_reference")
+    own = dict(module.named_buffers())
+    for name, a in (buffers or {}).items():
+        if name not in own:
+            raise ValueError(f"params_from_reference: no buffer {name!r}; have {sorted(own)}")
+        a = _exact(name, a, np.float32)
+        if tuple(a.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name} has shape {a.shape}, want {tuple(own[name].shape)}")
+        with torch.no_grad():
+            own[name].copy_(torch.from_numpy(a))
     return module
 
 
@@ -185,3 +200,27 @@ def opt_state_to_reference(opt, module: nn.Module) -> dict:
            for key in ("m", "v")}
     out["count"] = to_numpy(opt.count)
     return out
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy or ``jnp`` dtype (``jnp.bfloat16`` too)."""
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def _config_from_reference(cls, cfg, dtype_field: str):
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)}
+    fields[dtype_field] = _torch_dtype(fields[dtype_field])
+    return cls(**fields)
+
+
+def transformer_config_from_reference(cfg):
+    """The port's ``TransformerConfig`` with every field of a reference
+    ``repro.models.transformer.TransformerConfig``, ``param_dtype`` as the
+    torch dtype."""
+    return _config_from_reference(TransformerConfig, cfg, "param_dtype")
+
+
+def bert4rec_config_from_reference(cfg):
+    """The port's ``Bert4RecConfig`` with every field of a reference
+    ``repro.models.bert4rec.Bert4RecConfig``, ``dtype`` as the torch dtype."""
+    return _config_from_reference(Bert4RecConfig, cfg, "dtype")

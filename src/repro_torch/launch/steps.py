@@ -1,13 +1,19 @@
-"""(arch x shape) -> GNN train steps: the GNN half of the JAX package's
-``repro.launch.steps``.
+"""(arch x shape) -> step functions: the JAX package's ``repro.launch.steps``
+for the GNN train steps and the LM and recsys serving steps.
 
-For each GNN architecture it builds the shape's config
-(:func:`gnn_shape_config`), the padded batch dimensions
-(:func:`gnn_batch_dims`), the spec trees of one step's inputs and state,
-the model, and a train step (:func:`make_gnn_train_step`). The LM and
-recsys halves (prefill, decode, serving) and ``arch_rules`` (the
-logical-axis -> mesh-axis map of the dry-run) are not ported yet
-(ROADMAP.md §1 item 14).
+* GNNs: the shape's config (:func:`gnn_shape_config`), the padded batch
+  dimensions (:func:`gnn_batch_dims`), the spec trees of one step's inputs
+  and state, the model, and a train step (:func:`make_gnn_train_step`);
+* LMs: the shape's config (:func:`lm_shape_config`), the input specs, and
+  the prefill and decode steps (:func:`make_lm_prefill`,
+  :func:`make_lm_decode`);
+* BERT4Rec: the input specs, the two-stage top-k (:func:`sharded_topk`)
+  and the serving and retrieval steps (:func:`make_recsys_step`).
+
+Each step runs on the ``device`` it was made for (None: the CUDA card) and
+moves its batch there. The LM and recsys train steps, ``lm_state_specs``
+and ``arch_rules`` (the logical-axis -> mesh-axis map of the dry-run) are
+not ported yet (ROADMAP.md §1 item 14).
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import torch
 
 from repro_torch.configs.registry import ArchSpec, ShapeSpec, sampled_subgraph_sizes
 from repro_torch.core.types import resolve_device
+from repro_torch.models import bert4rec as b4r
+from repro_torch.models import transformer as tfm
 from repro_torch.models.gnn_common import GraphBatch
 from repro_torch.models.param import ArraySpec
 from repro_torch.optim import AdamW, AdamWConfig, adamw_init_specs
@@ -138,5 +146,168 @@ def make_gnn_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, 
                 label_mask=batch["label_mask"],
             )
         return train_step(model, opt, batch.to(dev), opt_cfg.lr)
+
+    return step
+
+
+# --------------------------------------------------------------- LM
+
+
+def lm_shape_config(arch: ArchSpec, shape: ShapeSpec) -> tfm.TransformerConfig:
+    """The arch's config at the shape: the reference's ``_lm_shape_overrides``
+    on one pod (its ``unroll`` and ``multi_pod`` switches are the dry-run's)."""
+    cfg: tfm.TransformerConfig = arch.config
+    # replicated-head archs (36 % 16 != 0) run sequence-parallel attention:
+    # `attn_par` query chunks batched into one product
+    sharded_heads = cfg.n_heads % 16 == 0
+    par = 1 if sharded_heads else 16
+    # MoE dispatch groups = DP degree (per-shard-local dispatch, 16 shards);
+    # decode batches may be smaller than DP
+    groups = min(16, shape.global_batch) if cfg.is_moe else 1
+    if shape.kind == "train":
+        return dataclasses.replace(
+            cfg, attn_chunk=512 if sharded_heads else 256, attn_par=par,
+            loss_chunk=256, unroll=False, moe_groups=groups,
+        )
+    if shape.kind == "prefill":
+        return dataclasses.replace(
+            cfg, attn_chunk=2048 if sharded_heads else 256, attn_par=par,
+            loss_chunk=512, remat=True, unroll=False, moe_groups=groups,
+        )
+    return dataclasses.replace(cfg, unroll=False, moe_groups=groups)
+
+
+def lm_input_specs(arch: ArchSpec, shape: ShapeSpec):
+    cfg: tfm.TransformerConfig = arch.config
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": ArraySpec((B, S), ("dp", None), torch.int32, "zeros")}
+    if shape.kind == "decode":
+        cache = {
+            name: ArraySpec(s.shape, ("layers", "cache_batch", "seq", "kv_heads", None),
+                            s.dtype, "zeros")
+            for name, s in tfm.kv_cache_specs(cfg, B, S).items()
+        }
+        return {
+            "cache": cache,
+            "token": ArraySpec((B,), ("cache_batch",), torch.int32, "zeros"),
+        }
+    raise ValueError(shape.kind)
+
+
+def make_lm_prefill(arch: ArchSpec, shape: ShapeSpec, device=None, max_len=None):
+    """``step(model, batch) -> (cache, logits [B, V])``: the prompt
+    ``batch["tokens"]`` through :func:`tfm.prefill` at the shape's config on
+    ``device`` (None: the card), into a cache of ``max_len`` slots (default
+    the prompt's length, the reference's cache), and the last position's
+    float32 logits (no soft cap, as the reference's step)."""
+    cfg = lm_shape_config(arch, shape)
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def step(model: tfm.Transformer, batch):
+        cache, last_h = tfm.prefill(model, batch["tokens"].to(dev), cfg, max_len)
+        return cache, tfm.lm_logits(model, last_h, cfg, softcap=False)
+
+    return step
+
+
+def make_lm_decode(arch: ArchSpec, shape: ShapeSpec, device=None):
+    """``step(model, batch) -> (logits [B, V], cache)``: one
+    :func:`tfm.decode_step` of ``batch["token"]`` against ``batch["cache"]``
+    at ``cache_len = S - 1`` (S the shape's length), on ``device`` (None:
+    the card); the new k/v are committed in place at slot S - 1 and the
+    same cache returned (the reference's ``dynamic_update_slice`` on a
+    donated buffer)."""
+    cfg = lm_shape_config(arch, shape)
+    dev = resolve_device(device)
+    S = shape.seq_len
+
+    @torch.no_grad()
+    def step(model: tfm.Transformer, batch):
+        cache = batch["cache"]
+        logits, (knew, vnew) = tfm.decode_step(model, cache, batch["token"].to(dev), S - 1, cfg)
+        cache["k"][:, :, S - 1] = knew[:, :, 0]
+        cache["v"][:, :, S - 1] = vnew[:, :, 0]
+        return logits, cache
+
+    return step
+
+
+# --------------------------------------------------------------- recsys
+
+
+def recsys_input_specs(arch: ArchSpec, shape: ShapeSpec):
+    cfg: b4r.Bert4RecConfig = arch.config
+    B = shape.batch
+    base = {
+        "item_ids": ArraySpec((B, cfg.seq_len), ("dp", None), torch.int32, "zeros"),
+        "context_ids": ArraySpec((B, cfg.n_context), ("dp", None), torch.int32, "zeros"),
+    }
+    if shape.kind == "train":
+        base |= {
+            "mask_pos": ArraySpec((B, cfg.n_mask), ("dp", None), torch.int32, "zeros"),
+            "labels": ArraySpec((B, cfg.n_mask), ("dp", None), torch.int32, "zeros"),
+            "negatives": ArraySpec((cfg.n_negatives,), (None,), torch.int32, "zeros"),
+            "neg_logq": ArraySpec((cfg.n_negatives,), (None,), torch.float32, "zeros"),
+        }
+    if shape.kind == "retrieval":
+        base |= {
+            "candidates": ArraySpec((shape.n_candidates,), ("rows",), torch.int32, "zeros"),
+        }
+    return base
+
+
+def sharded_topk(scores, k: int, shards: int = 16):
+    """Two-stage top-k that never sorts the full score row: the top ``k`` of
+    each of ``shards`` equal slices, then the top ``k`` of those. Returns
+    (values [B, k], global indices [B, k]), values descending."""
+    B, V = scores.shape
+    assert V % shards == 0
+    s = scores.reshape(B, shards, V // shards)
+    v1, i1 = torch.topk(s, k, dim=-1)  # [B, shards, k] (local per shard)
+    base = (torch.arange(shards, device=scores.device) * (V // shards))[None, :, None]
+    gidx = (i1 + base).reshape(B, shards * k)
+    v2, i2 = torch.topk(v1.reshape(B, shards * k), k, dim=-1)
+    return v2, torch.gather(gidx, 1, i2)
+
+
+def make_recsys_step(arch: ArchSpec, shape: ShapeSpec, device=None):
+    """``step(model, batch) -> (values [B, 100], item ids [B, 100])`` on
+    ``device`` (None: the card), the batch moved there. ``retrieval``: one
+    user's scores against ``batch["candidates"]`` and their top 100 (ids
+    index the candidate list); ``serve_scores``: the users in chunks of
+    ``min(B, 4096)``, each scored against the full item table (a [4096,
+    V] float32 block) and reduced to its top 100 by :func:`sharded_topk`.
+    Training (the ``train`` kind) is not ported yet (ROADMAP.md §1 item 14)."""
+    dev = resolve_device(device)
+    if shape.kind == "train":
+        raise NotImplementedError(
+            "the recsys train step is not ported yet (ROADMAP.md §1 item 14)")
+    cfg: b4r.Bert4RecConfig = arch.config
+
+    if shape.kind == "retrieval":
+
+        def step(model: b4r.Bert4Rec, batch):
+            scores = b4r.score_candidates(
+                model, batch["item_ids"].to(dev), batch["context_ids"].to(dev),
+                batch["candidates"].to(dev))
+            return sharded_topk(scores, k=100)
+
+        return step
+
+    B = shape.batch
+    user_chunk = min(B, 4096)
+
+    @torch.no_grad()
+    def step(model: b4r.Bert4Rec, batch):
+        ids = batch["item_ids"].to(dev).reshape(B // user_chunk, user_chunk, cfg.seq_len)
+        ctx = batch["context_ids"].to(dev).reshape(B // user_chunk, user_chunk, cfg.n_context)
+        vals, idxs = [], []
+        for i, c in zip(ids, ctx):
+            v, ix = sharded_topk(b4r.serve_scores(model, i, c), k=100)
+            vals.append(v)
+            idxs.append(ix)
+        return torch.cat(vals), torch.cat(idxs)
 
     return step

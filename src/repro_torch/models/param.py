@@ -5,10 +5,13 @@ Models declare parameters as nested dicts and lists of :class:`ArraySpec`
 :func:`materialize` registers one ``nn.Parameter`` per spec on a module,
 under the reference's tree path (``layers.0.w1``), so a module's
 ``state_dict`` keys are the reference's leaves. :func:`init_params` fills
-them with the reference's
-distributions from an explicit ``torch.Generator`` (the values differ from
-``jax.random``'s draws; parity tests carry the JAX values across with
-``repro_torch.convert.params_from_reference``).
+them with the reference's distributions from an explicit
+``torch.Generator``, drawing on the generator's device leaf by leaf (the
+values differ from ``jax.random``'s draws; parity tests carry the JAX
+values across with ``repro_torch.convert.params_from_reference``). A CPU
+generator gives the same values on every device; a CUDA generator draws
+on the card, which a model of billions of parameters needs (its float32
+draws would not fit the host's memory one leaf at a time).
 
 The sharding and dry-run halves of the reference module (``abstract_params``,
 ``pspecs``, ``shardings``) are not ported yet (ROADMAP.md §1 item 14).
@@ -76,8 +79,9 @@ def init_params(module: nn.Module, spec_tree: dict, generator: torch.Generator) 
     """Fill the tree's parameters: ``normal`` N(0, 1) / sqrt(fan_in) (fan_in
     ``shape[-2]``, or ``shape[-1]`` for a vector), ``embed`` N(0, 1),
     ``zeros``, ``ones``; an explicit ``scale`` replaces the factor. Draws
-    come from ``generator`` (a CPU generator: the same values on every
-    device), in the reference's leaf order."""
+    come from ``generator`` on its own device, one float32 leaf at a time,
+    in the reference's leaf order (a CPU generator: the same values on
+    every device; a CUDA generator: draws on the card)."""
     for path, spec in iter_specs(spec_tree):
         p = module.get_parameter(path)
         if spec.init == "zeros":
@@ -88,8 +92,10 @@ def init_params(module: nn.Module, spec_tree: dict, generator: torch.Generator) 
             scale = spec.scale
             if scale is None:
                 scale = 1.0 if spec.init == "embed" else 1.0 / math.sqrt(_fan_in(spec.shape))
-            draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32) * scale
-            p.copy_(draw.to(spec.dtype))
+            draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                               device=generator.device)
+            p.copy_(draw.mul_(scale).to(spec.dtype))
+            del draw
     return module
 
 
@@ -97,9 +103,13 @@ def count_params(spec_tree) -> int:
     return int(sum(math.prod(s.shape) for _, s in iter_specs(spec_tree)))
 
 
-def build_params(module: nn.Module, spec_tree: dict, device, seed: int = 0) -> nn.Module:
-    """:func:`materialize` then :func:`init_params` from a CPU generator
-    seeded with ``seed``: a module built on the card and one built on the
-    CPU from one seed hold the same values."""
+def build_params(module: nn.Module, spec_tree: dict, device, seed: int = 0,
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    """:func:`materialize` then :func:`init_params` from ``generator``, by
+    default a CPU generator seeded with ``seed``: a module built on the card
+    and one built on the CPU from one seed hold the same values. Pass a
+    seeded ``torch.Generator("cuda")`` to draw on the card instead."""
     materialize(module, spec_tree, device)
-    return init_params(module, spec_tree, torch.Generator().manual_seed(seed))
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    return init_params(module, spec_tree, generator)

@@ -1,0 +1,548 @@
+"""Decoder-only transformer LM family (dense GQA + MoE variants): serving.
+
+Covers internlm2-20b, minicpm-2b, gemma-7b (dense) and
+moonshot-v1-16b-a3b, grok-1-314b (MoE); the JAX package's
+``repro.models.transformer``. :class:`Transformer` holds the parameters,
+declared as the reference's tree of :class:`ArraySpec` with the layers
+**stacked** (one ``[n_layers, ...]`` parameter per leaf, ``layers.wq``
+and so on, indexed per layer in a Python loop), so its ``state_dict`` keys
+are the reference's leaves. The functions take the module where the
+reference takes its parameter tree: :func:`backbone`, :func:`prefill` and
+:func:`decode_step`; ``loss_fn`` belongs to the training path.
+
+Precision follows the reference at every point. Operands of different
+dtypes are promoted as ``jnp`` promotes them: gemma's embedding scale is a
+numpy float64 scalar, which makes its residual stream, projections and
+attention float32 over bfloat16 weights (the weights are promoted for each
+product); the other archs stay in their ``param_dtype``. The reference's
+``preferred_element_type=jnp.float32`` products (attention scores and
+outputs) take their operands as they are and return float32: a float32
+product on the card (:func:`_matmul_f32`), on the CPU the operands promoted
+to float32 first (a bfloat16 product is exact in float32 either way). The
+softmax runs in float32, ``p`` is cast to v's dtype, and the output is cast
+back to q's dtype. Run with TF32 off (PyTorch's default for matmuls).
+
+Three departures from the reference's schedule, none in the values:
+
+* :func:`attention` over a sequence that its chunk does not divide runs a
+  short last chunk (the reference runs one chunk over all of S: at 32,769
+  tokens a 68.7 GB block of scores); a query row's softmax does not depend
+  on the chunking;
+* :func:`prefill` returns the k/v that each layer computed (the reference
+  computes them again after the layer) into a cache of ``max_len`` slots
+  allocated once;
+* :func:`decode_step` scores the cache and the new token's own slot
+  separately and takes one softmax over both (the reference concatenates
+  the slot onto the cache, a copy of the cache in every layer).
+
+One departure in the draws: the head-major attention projections are
+drawn at their true fan-in (the reference's default fan-in, ``shape[-2]``,
+is the head count there, which makes the attention scores of a published
+width ~190 wide and a deep model chaotic; ROADMAP.md §3). Parity tests
+carry the reference's weights across, so no computation differs.
+
+``unroll`` and ``remat`` are accepted and change nothing here: the layer
+and chunk loops are Python loops, and serving keeps no activations for a
+backward pass.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.embedding import take_rows
+from repro_torch.models.param import ArraySpec, build_params
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    act: str = "swiglu"  # swiglu | geglu | gelu
+    # MoE (n_experts == 0 -> dense FFN)
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    expert_sharding: str = "ep"  # "ep" | "tp"
+    moe_groups: int = 1  # dispatch groups (= DP shards in production)
+    # EPxTP folding: each expert's FFN dim split into `expert_fold` slices
+    # stored as separate "half-experts" (grok: 8e x2).
+    expert_fold: int = 1
+    # misc
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    vocab_pad_to: int = 256
+    param_dtype: Any = torch.bfloat16
+    attn_chunk: int = 512
+    attn_par: int = 1  # chunks batched per attention product (see attention())
+    loss_chunk: int = 512
+    logit_softcap: float = 0.0
+    embed_scale: bool = False  # gemma: embeddings * sqrt(d_model)
+    remat: bool = True  # accepted; serving keeps no activations
+    unroll: bool = False  # accepted; the port's loops are Python loops
+    # GQA kv heads expanded to full heads before attention (train/prefill)
+    expand_kv: bool = False
+
+    @property
+    def vocab_padded(self) -> int:
+        v, p = self.vocab, self.vocab_pad_to
+        return ((v + p - 1) // p) * p
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def ff_mult(self) -> int:
+        return 2 if self.act in ("swiglu", "geglu") else 1
+
+    def param_count(self) -> int:
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        attn = d * self.n_heads * self.d_head * 2 + d * self.n_kv * self.d_head * 2
+        if self.is_moe:
+            ffn = self.n_experts * (d * f * self.ff_mult + f * d) + d * self.n_experts
+        else:
+            ffn = d * f * self.ff_mult + f * d
+        return L * (attn + ffn + 2 * d) + 2 * self.vocab_padded * d + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        attn = d * self.n_heads * self.d_head * 2 + d * self.n_kv * self.d_head * 2
+        ffn = self.top_k * (d * f * self.ff_mult + f * d) + d * self.n_experts
+        return L * (attn + ffn + 2 * d) + 2 * self.vocab_padded * d + d
+
+
+# ---------------------------------------------------------------- params
+
+
+def param_specs(cfg: TransformerConfig):
+    d, dt = cfg.d_model, cfg.param_dtype
+    L, H, Kv, Dh = cfg.n_layers, cfg.n_heads, cfg.n_kv, cfg.d_head
+
+    # the head-major projections are drawn at their true fan-in (d for wq,
+    # wk, wv; H * Dh for wo): the reference's default, shape[-2], is the
+    # head count (or head width) there (ROADMAP.md §3)
+    layer: dict[str, ArraySpec] = {
+        "ln1": ArraySpec((L, d), ("layers", None), dt, "ones"),
+        "ln2": ArraySpec((L, d), ("layers", None), dt, "ones"),
+        "wq": ArraySpec((L, d, H, Dh), ("layers", "embed", "heads", None), dt,
+                        scale=1.0 / math.sqrt(d)),
+        "wk": ArraySpec((L, d, Kv, Dh), ("layers", "embed", "kv_heads", None), dt,
+                        scale=1.0 / math.sqrt(d)),
+        "wv": ArraySpec((L, d, Kv, Dh), ("layers", "embed", "kv_heads", None), dt,
+                        scale=1.0 / math.sqrt(d)),
+        "wo": ArraySpec((L, H, Dh, d), ("layers", "heads", None, "embed"), dt,
+                        scale=1.0 / math.sqrt(H * Dh)),
+    }
+    if cfg.is_moe:
+        Fo = cfg.expert_fold
+        assert cfg.d_ff % Fo == 0 and (cfg.d_ff * cfg.ff_mult) % Fo == 0
+        layer |= {
+            "router": ArraySpec((L, d, cfg.n_experts), ("layers", "embed", None), torch.float32),
+            "w1": ArraySpec(
+                (L, cfg.n_experts * Fo, d, cfg.d_ff * cfg.ff_mult // Fo),
+                ("layers", "expert", "embed", "expert_mlp"),
+                dt,
+            ),
+            "w2": ArraySpec(
+                (L, cfg.n_experts * Fo, cfg.d_ff // Fo, d),
+                ("layers", "expert", "expert_mlp", "embed"),
+                dt,
+            ),
+        }
+    else:
+        layer |= {
+            "w1": ArraySpec((L, d, cfg.d_ff * cfg.ff_mult), ("layers", "embed", "mlp"), dt),
+            "w2": ArraySpec((L, cfg.d_ff, d), ("layers", "mlp", "embed"), dt),
+        }
+    return {
+        "embed": ArraySpec((cfg.vocab_padded, d), ("vocab", "embed"), dt, "embed", 1.0),
+        "layers": layer,
+        "ln_f": ArraySpec((d,), (None,), dt, "ones"),
+        "lm_head": ArraySpec((d, cfg.vocab_padded), ("embed", "vocab"), dt),
+    }
+
+
+def rope_freqs(d_head: int, theta: float) -> torch.Tensor:
+    """float32 [d_head // 2]: ``exp(-arange(half) * log(theta) / half)`` on
+    the host. Its lanes may differ by an ulp from the reference's (XLA's
+    ``exp``), so parity tests carry the reference's vector across
+    (``convert.params_from_reference(..., buffers=...)``)."""
+    half = d_head // 2
+    return torch.exp(-torch.arange(half, dtype=torch.float32) * (math.log(theta) / half))
+
+
+class Transformer(nn.Module):
+    """The LM's parameters (the reference's tree, layers stacked) and its
+    RoPE frequency buffer ``rope_freqs``, on ``device`` (None: the CUDA
+    card), drawn from ``seed`` on the CPU, or from ``generator`` (a seeded
+    ``torch.Generator("cuda")`` draws on the card)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        build_params(self, param_specs(cfg), dev, seed, generator)
+        self.register_buffer("rope_freqs", rope_freqs(cfg.d_head, cfg.rope_theta).to(dev))
+
+    def layer_params(self, i: int) -> dict:
+        """Layer ``i``'s slice of every stacked leaf."""
+        return {k: p[i] for k, p in self.layers.named_parameters()}
+
+
+# ---------------------------------------------------------------- layers
+
+
+def _promote(*xs):
+    """The operands in their common dtype (jnp's promotion: bf16 with f32 is f32)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x.to(dt) for x in xs)
+
+
+def _matmul(a, b):
+    """``a @ b`` in the operands' common dtype (``jnp.einsum`` / ``@``)."""
+    a, b = _promote(a, b)
+    return torch.matmul(a, b)
+
+
+def _matmul_f32(a, b):
+    """``a @ b`` with ``preferred_element_type=float32``: the operands in their
+    common dtype, float32 products and sums, a float32 result. Batched
+    operands of equal batch shape; a bfloat16 product on the card is cuBLAS's
+    bf16 GEMM with float32 output, elsewhere the operands are promoted to
+    float32 (the products are exact either way)."""
+    a, b = _promote(a, b)
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        batch = a.shape[:-2]
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*batch, *out.shape[-2:])
+    return torch.matmul(a.float(), b.float())
+
+
+def _softmax_(s: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax(s, -1)`` in place: exp(s - max) / sum."""
+    s.sub_(s.amax(-1, keepdim=True)).exp_()
+    return s.div_(s.sum(-1, keepdim=True))
+
+
+def rmsnorm(x, scale, eps):
+    x32 = x.float()
+    inv = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * inv).to(x.dtype) * scale
+
+
+def rope(x, positions, freqs):
+    """x: [..., S, H, D]; positions broadcastable [..., S]; freqs float32 [D/2]."""
+    half = x.shape[-1] // 2
+    ang = positions[..., None].float() * freqs  # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _activate(h, act):
+    """GLU gates (the gate half times the up half) or gelu; jax's ``gelu``
+    is the tanh approximation."""
+    if act in ("swiglu", "geglu"):
+        g, u = torch.chunk(h, 2, dim=-1)
+        gate = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        return gate.mul_(u)
+    return F.gelu(h, approximate="tanh")
+
+
+def _attend(q, kT, vh, qpos, G: int):
+    """Query rows ``q`` [B, n, Hq, D] at positions ``qpos`` [n] against the
+    keys ``kT`` [B, Hk, D, S] and values ``vh`` [B, Hk, S, D] at or before
+    them -> [B, n, Hq, D] in q's dtype."""
+    B, n, Hq, D = q.shape
+    Hk, S = kT.shape[1], kT.shape[3]
+    qh = q.reshape(B, n, Hk, G, D).permute(0, 2, 3, 1, 4).reshape(B, Hk, G * n, D)
+    s = _matmul_f32(qh, kT).mul_(1.0 / np.sqrt(D))  # [B, Hk, G*n, S]
+    ok = qpos[:, None] >= torch.arange(S, device=q.device)[None, :]  # causal [n, S]
+    s.view(B, Hk, G, n, S).masked_fill_(~ok, -1e30)
+    p = _softmax_(s).to(vh.dtype)
+    o = _matmul_f32(p, vh)  # [B, Hk, G*n, D]
+    return o.reshape(B, Hk, G, n, D).permute(0, 3, 1, 2, 4).reshape(B, n, Hq, D).to(q.dtype)
+
+
+def attention(q, k, v, cfg: TransformerConfig):
+    """Query-chunked causal attention; no [S, S] tensor.
+
+    q: [B, S, Hq, D], k/v: [B, S, Hk, D] with Hq = Hk * G. The reference's
+    schedule: chunks of ``attn_chunk`` queries, ``attn_par`` of them batched
+    into one product (chunk ``p * n_outer + i`` in step i), the steps in a
+    loop; each step's [B, Hk, G, par * c, S] float32 block of scores is the
+    only attention transient. Where ``attn_chunk`` does not divide S the
+    remainder runs as one short last chunk (see the module docstring).
+    """
+    B, S, Hq, D = q.shape
+    Hk = k.shape[2]
+    G = Hq // Hk
+    c = min(cfg.attn_chunk, S)
+    nq = S // c
+    par = max(1, min(cfg.attn_par, nq))
+    while nq % par:
+        par -= 1
+    n_outer = nq // par
+    kT = k.permute(0, 2, 3, 1).contiguous()  # [B, Hk, D, S]
+    vh = v.permute(0, 2, 1, 3).contiguous()  # [B, Hk, S, D]
+    out = torch.empty_like(q)
+    dev = q.device
+    main = q[:, : nq * c].reshape(B, par, n_outer, c, Hq, D)
+    rows = (torch.arange(par, device=dev)[:, None] * n_outer) * c + torch.arange(c, device=dev)
+    for i in range(n_outer):
+        qpos = (rows + i * c).reshape(-1)  # [par * c]
+        qi = main[:, :, i].reshape(B, par * c, Hq, D)
+        out[:, qpos] = _attend(qi, kT, vh, qpos, G)
+    if S % c:  # ragged tail: one short chunk
+        qpos = torch.arange(nq * c, S, device=dev)
+        out[:, nq * c:] = _attend(q[:, nq * c:], kT, vh, qpos, G)
+    return out
+
+
+def _moe_ffn(x, router_w, w1, w2, cfg: TransformerConfig):
+    """x: [T, d] -> [T, d]. Group-local capacity dispatch, as the reference:
+    tokens split into ``moe_groups`` groups, each (token, choice) pair given
+    the next free slot of its expert in token order (a one-hot cumsum), the
+    pairs past capacity C = ceil(Tl * k * cf / E) rounded up to 8 dropped
+    into an overflow row E * C; ``expert_fold`` copies of each expert's
+    tokens for the folded experts, their partial outputs summed. The
+    combine adds a token's k weighted outputs in choice order, in the
+    outputs' dtype (the reference's ``segment_sum`` on the CPU)."""
+    T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G = max(1, min(cfg.moe_groups, T))
+    assert T % G == 0, (T, G)
+    Tl = T // G
+    C = int(np.ceil(Tl * k * cfg.capacity_factor / E))
+    C = ((C + 7) // 8) * 8
+    xg = constrain(x.reshape(G, Tl, d), "dp", None, None)
+    logits = torch.matmul(xg.float(), router_w)  # [G, Tl, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate, eid = torch.topk(probs, k, dim=-1)  # [G, Tl, k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    eid_f = eid.reshape(G, Tl * k)
+    gate_f = gate.reshape(G, Tl * k)
+    oh = F.one_hot(eid_f, E)  # [G, Tl*k, E]
+    pos = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1  # position within expert
+    keep = pos < C
+    slot = torch.where(keep, eid_f * C + torch.clamp(pos, 0, C - 1), E * C)
+    xt = xg.repeat_interleave(k, dim=1)  # [G, Tl*k, d]: token t's k rows
+    xt = torch.where(keep[..., None], xt, 0)
+    disp = xt.new_zeros(G, E * C + 1, d)
+    disp.scatter_(1, slot[..., None].expand(-1, -1, d), xt)  # one pair per slot
+    buf = disp[:, : E * C].reshape(G, E, C, d).to(cfg.param_dtype)
+    Fo = cfg.expert_fold
+    if Fo > 1:  # every fold of an expert sees the same tokens
+        buf = buf.repeat_interleave(Fo, dim=1)  # [G, E*F, C, d]
+    buf = constrain(buf, "dp", "expert", None, None)
+    EF = buf.shape[1]
+    be = buf.permute(1, 0, 2, 3).reshape(EF, G * C, d)  # experts lead: one batched product
+    h = _matmul(be, w1)  # [E*F, G*C, f]
+    h = _activate(h, cfg.act)
+    out_buf = _matmul(h, w2).reshape(EF, G, C, d).permute(1, 0, 2, 3)  # [G, E*F, C, d]
+    if Fo > 1:  # block-diagonal FFN decomposition: sum fold partials
+        out_buf = out_buf.reshape(G, E, Fo, C, d).sum(2)
+    out_flat = out_buf.reshape(G, E * C, d)
+    picked = torch.gather(
+        out_flat, 1, torch.clamp(slot, 0, E * C - 1)[..., None].expand(-1, -1, d))
+    picked = torch.where(keep[..., None], picked, 0)
+    contrib = (picked * gate_f[..., None].to(picked.dtype)).reshape(G, Tl, k, d)
+    combined = contrib[:, :, 0]
+    for j in range(1, k):
+        combined = combined + contrib[:, :, j]
+    combined = constrain(combined, "dp", None, None)
+    return combined.reshape(T, d).to(x.dtype)
+
+
+def _qkv(h, lp, cfg: TransformerConfig, positions, freqs):
+    B, S, d = h.shape
+    flat = h.reshape(B * S, d)
+    proj = lambda w: _matmul(flat, w.reshape(d, -1)).reshape(B, S, w.shape[1], w.shape[2])
+    q = rope(proj(lp["wq"]), positions, freqs)
+    kk = rope(proj(lp["wk"]), positions, freqs)
+    vv = proj(lp["wv"])
+    if cfg.attn_par > 1 and S > 1:
+        q = constrain(q, "dp", "model_seq", None, None)
+        kk = constrain(kk, "dp", "model_seq", None, None)
+        vv = constrain(vv, "dp", "model_seq", None, None)
+    return q, kk, vv
+
+
+def _out_proj(attn, wo):
+    """einsum("bshk,hkd->bsd", attn, wo)."""
+    B, S, H, Dh = attn.shape
+    return _matmul(attn.reshape(B, S, H * Dh), wo.reshape(H * Dh, -1))
+
+
+def _ffn(h2, lp, cfg: TransformerConfig):
+    B, S, d = h2.shape
+    if cfg.is_moe:
+        return _moe_ffn(h2.reshape(B * S, d), lp["router"], lp["w1"], lp["w2"], cfg).reshape(B, S, d)
+    return _matmul(_activate(_matmul(h2, lp["w1"]), cfg.act), lp["w2"])
+
+
+def _layer(x, lp, cfg: TransformerConfig, positions, freqs):
+    """One block; returns (x, k, v), k/v as ``_qkv`` gave them."""
+    G = cfg.n_heads // cfg.n_kv
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, kk, vv = _qkv(h, lp, cfg, positions, freqs)
+    ka, va = kk, vv
+    if cfg.expand_kv and G > 1:
+        ka = kk.repeat_interleave(G, dim=2)  # [B, S, H, D]
+        va = vv.repeat_interleave(G, dim=2)
+    attn = attention(q, ka, va, cfg)
+    del q, ka, va
+    x = x + _out_proj(attn, lp["wo"]).to(x.dtype)
+    del attn
+    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + _ffn(h2, lp, cfg).to(x.dtype), kk, vv
+
+
+def _embed(model: Transformer, tokens):
+    """Embedding rows of ``tokens``; gemma's scale is a numpy float64, which
+    promotes the stream to float32 as in the reference."""
+    x = take_rows(model.embed, tokens)
+    if model.cfg.embed_scale:
+        x = x.float() * float(np.sqrt(model.cfg.d_model))
+    return x
+
+
+def _run_layers(model: Transformer, x, positions, cfg: TransformerConfig, cache=None):
+    """Every layer in order; with ``cache``, layer i's k/v are written into
+    ``cache["k"][i, :, :S]`` (in the cache's dtype)."""
+    S = x.shape[1]
+    for i in range(cfg.n_layers):
+        x, kk, vv = _layer(x, model.layer_params(i), cfg, positions, model.rope_freqs)
+        x = constrain(x, "dp", "model_seq", "model_d")
+        if cache is not None:
+            cache["k"][i, :, :S] = kk
+            cache["v"][i, :, :S] = vv
+        del kk, vv
+    return x
+
+
+def backbone(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None):
+    """tokens [B, S] -> final hidden [B, S, d]. Autograd records it unless
+    the caller turns it off (``torch.no_grad()``), as a server does."""
+    cfg = cfg or model.cfg
+    S = tokens.shape[1]
+    x = constrain(_embed(model, tokens), "dp", "model_seq", "model_d")
+    positions = torch.arange(S, device=x.device)[None, :]
+    x = _run_layers(model, x, positions, cfg)
+    return rmsnorm(x, model.ln_f, cfg.norm_eps)
+
+
+def lm_logits(model: Transformer, h, cfg: Optional[TransformerConfig] = None, softcap=True):
+    """float32 logits of hidden rows ``h`` [..., d] through ``lm_head``, soft-capped
+    as the decode step does (``softcap=False``: as the prefill step does)."""
+    cfg = cfg or model.cfg
+    logits = _matmul(h, model.lm_head).float()
+    if softcap and cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+# ---------------------------------------------------------------- decode
+
+
+def kv_cache_specs(cfg: TransformerConfig, batch: int, max_len: int):
+    dt = cfg.param_dtype
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.d_head)
+    logical = ("layers", "cache_batch", "seq", "kv_heads", None)
+    return {
+        "k": ArraySpec(shape, logical, dt, "zeros"),
+        "v": ArraySpec(shape, logical, dt, "zeros"),
+    }
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None,
+            max_len: Optional[int] = None):
+    """Build the KV cache for a prompt; returns (cache, last hidden [B, d]).
+
+    The cache has ``max_len`` slots (default S, the reference's cache), the
+    prompt's k/v in slots [0, S) and zeros past them, allocated once.
+    """
+    cfg = cfg or model.cfg
+    B, S = tokens.shape
+    max_len = S if max_len is None else max_len
+    if max_len < S:
+        raise ValueError(f"max_len {max_len} < prompt length {S}")
+    x = constrain(_embed(model, tokens), "dp", "model_seq", "model_d")
+    cache = {name: torch.zeros(s.shape, dtype=s.dtype, device=x.device)
+             for name, s in kv_cache_specs(cfg, B, max_len).items()}
+    positions = torch.arange(S, device=x.device)[None, :]
+    x = _run_layers(model, x, positions, cfg, cache)
+    return cache, rmsnorm(x[:, -1], model.ln_f, cfg.norm_eps)
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: dict, token, cache_len,
+                cfg: Optional[TransformerConfig] = None):
+    """One decode step. token [B] int; cache_len the number of filled slots.
+
+    The token attends to the cache slots [0, cache_len) and to itself: its
+    scores against the whole cache (masked past ``cache_len``) and against
+    its own k are one softmax, its own v added after the cache's product.
+    Returns (logits [B, V] float32, new k/v [L, B, 1, Kv, D]); the caller
+    commits them (``make_lm_decode`` does, in place).
+    """
+    cfg = cfg or model.cfg
+    B = token.shape[0]
+    S_max = cache["k"].shape[2]
+    Kv, D, G = cfg.n_kv, cfg.d_head, cfg.n_heads // cfg.n_kv
+    x = _embed(model, token)[:, None]  # [B, 1, d]
+    dev = x.device
+    pos = torch.full((B, 1), int(cache_len), dtype=torch.int32, device=dev)
+    past = torch.arange(S_max, device=dev) >= int(cache_len)  # masked slots
+    knew, vnew = [], []
+    for i in range(cfg.n_layers):
+        lp = model.layer_params(i)
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, kk, vv = _qkv(h, lp, cfg, pos, model.rope_freqs)
+        kk, vv = kk.to(cache["k"].dtype), vv.to(cache["v"].dtype)
+        qh = q.reshape(B, Kv, G, D)
+        kc, vc = cache["k"][i], cache["v"][i]  # [B, S_max, Kv, D]: read in place
+        s_cache = torch.stack([_matmul_f32(qh[b], kc[b].permute(1, 2, 0)) for b in range(B)])
+        s_self = _matmul_f32(qh, kk.reshape(B, Kv, D, 1))  # [B, Kv, G, 1]
+        s = torch.cat([s_cache, s_self], dim=-1) / np.float32(np.sqrt(D))
+        s[..., :S_max].masked_fill_(past, -1e30)
+        p = _softmax_(s).to(vc.dtype)
+        attn = torch.stack([_matmul_f32(p[b, ..., :S_max], vc[b].permute(1, 0, 2))
+                            for b in range(B)])  # [B, Kv, G, D]
+        attn = attn + p[..., S_max:].float() * vv.reshape(B, Kv, 1, D).float()
+        attn = attn.reshape(B, 1, cfg.n_heads, D)
+        x = x + _out_proj(attn.to(x.dtype), lp["wo"])
+        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _ffn(h2, lp, cfg).to(x.dtype)
+        knew.append(kk)
+        vnew.append(vv)
+    x = rmsnorm(x, model.ln_f, cfg.norm_eps)
+    logits = lm_logits(model, x[:, 0], cfg)
+    return logits, (torch.stack(knew), torch.stack(vnew))

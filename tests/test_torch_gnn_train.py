@@ -64,15 +64,12 @@ def _spec(s):
 
 
 def test_registry_holds_the_four_gnns():
-    assert all_arch_ids() == sorted(GNN_IDS)
-    assert set(all_arch_ids()) | set(registry.NOT_PORTED) == set(jall_arch_ids())
-
-
-@pytest.mark.parametrize("arch_id", registry.NOT_PORTED)
-def test_unported_archs_raise(arch_id):
-    jget_arch(arch_id)  # the reference knows it
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_arch(arch_id)
+    """The four GNNs, among all ten ids of the reference's registry (the LMs
+    and BERT4Rec are held in ``test_torch_lm.py`` / ``test_torch_recsys.py``);
+    an unknown id raises."""
+    assert set(GNN_IDS) <= set(all_arch_ids())
+    assert all_arch_ids() == jall_arch_ids() and len(all_arch_ids()) == 10
+    assert {get_arch(a).family for a in GNN_IDS} == {"gnn"}
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 

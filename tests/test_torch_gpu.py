@@ -7,9 +7,12 @@ card against the same calls on the CPU; then the robustness and
 observability layers on the card: the per-edge kernels at L = 1 (the
 device merge's shape), ``merge_device``, every rung of the fallback
 ladder, the telemetry records of the three entries, ``validate``, and
-snapshots with the execution guard around the epoch executor; and one
-train step of each GNN on the card against the same step on the CPU. They
-skip without a CUDA device; on a machine with an NVIDIA card run
+snapshots with the execution guard around the epoch executor; one train
+step of each GNN on the card against the same step on the CPU; and the
+serving paths: the five LMs (prefill, decode) and BERT4Rec (serve,
+retrieval) at their smoke configs on the card against the CPU, a card
+build against a CPU build from one seed, and draws from a CUDA generator.
+They skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -791,3 +794,128 @@ def test_gnn_train_step_on_card_matches_cpu(cuda, arch_id):
     np.testing.assert_allclose(float(out["loss"]), loss_cpu, rtol=1e-4)
     errs = grad_errors(model, grads_cpu)
     assert max(errs.values()) <= 1e-3, errs
+
+
+LM_IDS = ["internlm2-20b", "minicpm-2b", "gemma-7b", "moonshot-v1-16b-a3b", "grok-1-314b"]
+
+
+def _rel_err(got, want) -> float:
+    """Largest error over the largest magnitude of ``want`` (on the CPU)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("arch_id", LM_IDS)
+def test_lm_serving_on_card_matches_cpu(cuda, arch_id):
+    """Each LM at its smoke config in float32, built on the CPU from seed 0
+    and copied to the card: ``prefill`` into a longer cache and three greedy
+    ``decode_step``s (committed in place), on both; every logit and cache
+    entry within 1e-4 of the CPU's largest magnitude (TF32 off)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_arch(arch_id).smoke_config, param_dtype=torch.float32)
+    host = tfm.Transformer(cfg, device="cpu", seed=0)
+    card = copy.deepcopy(host).to(cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    out = {}
+    for name, model in (("cpu", host), ("cuda", card)):
+        dev = next(model.parameters()).device
+        cache, last = tfm.prefill(model, tokens.to(dev), max_len=44)
+        token, logits = tokens[:, -1].to(dev), []
+        for t in range(3):
+            lg, (k, v) = tfm.decode_step(model, cache, token, 40 + t)
+            cache["k"][:, :, 40 + t] = k[:, :, 0]
+            cache["v"][:, :, 40 + t] = v[:, :, 0]
+            logits.append(lg)
+            token = lg.argmax(-1)
+        out[name] = (last, torch.stack(logits), cache)
+    assert out["cuda"][1].device.type == "cuda"
+    assert _rel_err(out["cuda"][0], out["cpu"][0]) <= 1e-4
+    assert _rel_err(out["cuda"][1], out["cpu"][1]) <= 1e-4
+    for k in ("k", "v"):
+        assert _rel_err(out["cuda"][2][k], out["cpu"][2][k]) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["serve_scores", "retrieval"])
+def test_bert4rec_serving_on_card_matches_cpu(cuda, kind):
+    """BERT4Rec at its smoke config (4,096 items), one serving or retrieval
+    step on the card against the CPU: the top-100 values within 1e-5 of the
+    largest, and the card's indices point at the card's values."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch, registry
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import bert4rec as b4r
+
+    arch = get_arch("bert4rec")
+    arch = dataclasses.replace(arch, config=dataclasses.replace(arch.smoke_config, item_vocab=4096))
+    cfg = arch.config
+    shape = (registry.ShapeSpec("s", "serve_scores", batch=8) if kind == "serve_scores"
+             else registry.ShapeSpec("r", "retrieval", batch=1, n_candidates=4096))
+    host = b4r.Bert4Rec(cfg, device="cpu", seed=0)
+    card = copy.deepcopy(host).to(cuda)
+    batch = RecsysPipeline(cfg.item_vocab, shape.batch, cfg.seq_len, cfg.n_mask, cfg.n_negatives,
+                           cfg.n_context, seed=1, device="cpu").batch_at(0)
+    batch["candidates"] = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.item_vocab, 4096).astype(np.int32))
+    want = steps.make_recsys_step(arch, shape, device="cpu")(host, batch)
+    got = steps.make_recsys_step(arch, shape, device=cuda)(card, batch)
+    assert got[0].device.type == "cuda" and got[0].shape == want[0].shape
+    assert _rel_err(got[0], want[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("which", ["transformer", "bert4rec"])
+def test_card_build_equals_cpu_build(cuda, which):
+    """From one seed, the default (CPU) generator gives the card the CPU's
+    values; a CUDA generator draws on the card, with the same distributions."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.models import transformer as tfm
+
+    cls, arch_id = ((tfm.Transformer, "gemma-7b") if which == "transformer"
+                    else (b4r.Bert4Rec, "bert4rec"))
+    cfg = get_arch(arch_id).smoke_config
+    host, card = cls(cfg, device="cpu", seed=3), cls(cfg, device=cuda, seed=3)
+    for (name, a), (_, b) in zip(host.state_dict().items(), card.state_dict().items()):
+        assert b.device.type == "cuda" and torch.equal(a, b.cpu()), name
+    drawn = cls(cfg, device=cuda, generator=torch.Generator("cuda").manual_seed(3))
+    again = cls(cfg, device=cuda, generator=torch.Generator("cuda").manual_seed(3))
+    for name, p in drawn.named_parameters():
+        assert torch.equal(p, again.get_parameter(name)), name
+    big = max(drawn.named_parameters(), key=lambda kv: kv[1].numel())
+    ref = host.get_parameter(big[0]).float()
+    assert not torch.equal(big[1].cpu(), host.get_parameter(big[0]))
+    assert abs(float(big[1].detach().float().std()) - float(ref.std())) <= 0.05 * float(ref.std())
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "decode"])
+def test_matmul_f32_of_bfloat16_on_card(cuda, layout):
+    """bfloat16 operands, float32 result on the card (cuBLAS, float32
+    accumulation) against the float64 product of the same values, within
+    the float32 summation bound: dense
+    batches, and the decode step's views (a slice of the probabilities, the
+    cache's values read in place, [Kv, S, D] at strides (D, Kv * D, 1))."""
+    from repro_torch.models.transformer import _matmul_f32
+
+    g = torch.Generator().manual_seed(0)
+    if layout == "contiguous":
+        a = torch.randn(15, 64, 256, generator=g).to(torch.bfloat16).to(cuda)
+        b = torch.randn(15, 256, 96, generator=g).to(torch.bfloat16).to(cuda)
+    else:
+        S = 1000
+        a = torch.rand(4, 2, S + 1, generator=g).to(torch.bfloat16).to(cuda)[..., :S]
+        b = torch.randn(S, 4, 64, generator=g).to(torch.bfloat16).to(cuda).permute(1, 0, 2)
+    got = _matmul_f32(a, b)
+    want = torch.matmul(a.double(), b.double())
+    assert got.dtype == torch.float32
+    # float32 sums of K exact products: within K * 2^-24 of the largest (a
+    # layout fault would be off by O(1))
+    K = a.shape[-1]
+    assert _rel_err(got, want) <= K * 2.0**-24, (_rel_err(got, want), K)

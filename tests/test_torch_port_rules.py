@@ -27,8 +27,8 @@ from repro_torch.configs import get_arch
 from repro_torch.data import RecsysPipeline, TokenPipeline, make_gnn_batch
 from repro_torch.distributed import build_mesh, constrain, plan_remesh, sharding_rules
 from repro_torch.graph import coarsen_by_matching
-from repro_torch.launch import gnn_train, steps
-from repro_torch.models import egnn, equiformer_v2, gin, meshgraphnet
+from repro_torch.launch import gnn_train, serve_recsys, steps
+from repro_torch.models import bert4rec, egnn, equiformer_v2, gin, meshgraphnet, transformer
 from repro_torch.optim import AdamWConfig
 from repro_torch.kernels.substream_match import kernel
 from repro_torch.kernels.substream_match.ops import (
@@ -159,15 +159,27 @@ SLICE_ENTRIES = {
     "gnn_train_main": lambda s, c: gnn_train.main(["--steps", "1", "--scale", "4"]),
     "TokenPipeline": lambda s, c: TokenPipeline(10, 2, 4).batch_at(0),
     "RecsysPipeline": lambda s, c: RecsysPipeline(10, 2, 4, 1, 3).batch_at(0),
+    "Transformer": lambda s, c: transformer.Transformer(get_arch("gemma-7b").smoke_config),
+    "Bert4Rec": lambda s, c: bert4rec.Bert4Rec(get_arch("bert4rec").smoke_config),
+    "make_lm_prefill": lambda s, c: steps.make_lm_prefill(
+        get_arch("gemma-7b"), get_arch("gemma-7b").shapes["prefill_32k"]),
+    "make_lm_decode": lambda s, c: steps.make_lm_decode(
+        get_arch("gemma-7b"), get_arch("gemma-7b").shapes["decode_32k"]),
+    "make_recsys_step_serve": lambda s, c: steps.make_recsys_step(
+        get_arch("bert4rec"), get_arch("bert4rec").shapes["serve_p99"]),
+    "make_recsys_step_retrieval": lambda s, c: steps.make_recsys_step(
+        get_arch("bert4rec"), get_arch("bert4rec").shapes["retrieval_cand"]),
+    "serve_recsys_main": lambda s, c: serve_recsys.main([]),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(SLICE_ENTRIES))
 def test_rounds_gseq_and_substrate_default_to_the_card(monkeypatch, entry):
     """The rounds engines, G-SEQ, ``substream_matchings``, coarsening, the
-    mesh, the GNN models, batches, train step and trainer, and the
-    pipelines: ``device=None`` (for the sharded rounds, a mesh on the card)
-    raises without a card, before any work."""
+    mesh, the GNN models, batches, train step and trainer, the pipelines,
+    the LM and BERT4Rec models, their serving steps and the recsys server:
+    ``device=None`` (for the sharded rounds, a mesh on the card) raises
+    without a card, before any work."""
     stream, cfg = _cpu_stream(), SubstreamConfig(n=3, L=8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -175,11 +187,8 @@ def test_rounds_gseq_and_substrate_default_to_the_card(monkeypatch, entry):
 
 
 def test_unported_archs_and_placement_raise():
-    """The LM and recsys archs are known but not ported; the models'
-    sharding constraints are a no-op without rules and raise under them
-    (their DTensor placement is not ported)."""
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_arch("gemma-7b")
+    """The models' sharding constraints are a no-op without rules and raise
+    under them (their DTensor placement is not ported)."""
     x = torch.ones(3)
     assert constrain(x, "nodes") is x
     with sharding_rules({"nodes": "data"}):
