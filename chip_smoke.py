@@ -62,9 +62,21 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   tokens; gemma-7b, internlm2-20b, minicpm-2b and moonshot-v1-16b-a3b at
   their published widths cut to 2 layers, float32, held to the CPU;
   BERT4Rec at its published config on serve_p99, serve_bulk and
-  retrieval_cand, a serve_p99 batch held to the CPU. They launch none of
-  the six kernels (attention, MoE dispatch and the retrieval product are
-  plain PyTorch, as they are plain XLA in the reference).
+  retrieval_cand, a serve_p99 batch held to the CPU; serve_bulk also with
+  ``torch.topk``'s two stages (any index among ties) in turns with the
+  tie-exact top-k;
+* the training paths (run first, on an empty card): minicpm-2b at its
+  published config (40 layers, bf16 weights, float32 moments) on
+  train_4k's 4,096-token sequences, its batch cut to what one card holds,
+  3 ``make_lm_train_step`` steps with the WSD
+  schedule (ms, tokens/s, peak, model-FLOP share); minicpm-2b and
+  moonshot-v1-16b-a3b (two router columns tied) at their published widths
+  cut to 2 layers, float32, one train step on the card held to the CPU;
+  BERT4Rec at its published config on train_batch, its users cut, 3
+  ``make_recsys_step`` train steps, one step of 64 users held to the CPU.
+  The serving and training phases launch none of the six kernels
+  (attention, MoE dispatch, the losses and AdamW are plain PyTorch, as they
+  are plain XLA in the reference).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -134,6 +146,21 @@ LM_HELD_LAYERS = 2
 LM_HELD_PROMPT = 256
 LM_HELD_STEPS = 4
 LM_HELD_RTOL = 1e-4
+#: LM training: minicpm-2b at its published config on train_4k, the sequences a
+#: step (train_4k's 256, cut to what one card holds beside the 36.1 GB of
+#: weights, gradients and float32 moments) and the steps; the 2-layer
+#: full-width models whose train step is held to the CPU, on 2 x 128 tokens
+LM_TRAIN_ARCH = "minicpm-2b"
+LM_TRAIN_BATCH = 5
+LM_TRAIN_STEPS = 3
+LM_TRAIN_HELD_ARCHS = ("minicpm-2b", "moonshot-v1-16b-a3b")
+LM_TRAIN_HELD_TOKENS = 128
+#: BERT4Rec training at its published config: users a step (train_batch's 65,536
+#: cut: its [B, 40, 8,193] float32 logits are 86 GB at 65,536), steps, and the
+#: users of the step held to the CPU
+RECSYS_TRAIN_BATCH = 6144
+RECSYS_TRAIN_STEPS = 3
+RECSYS_HELD_USERS = 64
 #: BERT4Rec serving: serve_p99 batches timed, and a serve_p99 batch's scores on the
 #: card against the CPU (error over the largest magnitude)
 RECSYS_P99_BATCHES = 20
@@ -2059,12 +2086,23 @@ def phase_lm_serve():
     torch.cuda.empty_cache()
 
 
+def _tie_router(model):
+    """Make each layer's router column 1 equal to column 0: every token's
+    probabilities then tie between experts 0 and 1 (the routing tie-break)."""
+    import torch
+
+    with torch.no_grad():
+        model.layers.router[..., 1] = model.layers.router[..., 0]
+
+
 def phase_lm_held_to_cpu():
-    """gemma-7b, internlm2-20b, minicpm-2b and moonshot-v1-16b-a3b at their
-    published widths cut to LM_HELD_LAYERS layers, float32, built on the CPU
-    from seed 0 and copied to the card: ``prefill`` of 2 x LM_HELD_PROMPT
-    tokens and LM_HELD_STEPS decode steps (the pipeline's next tokens) on
-    both; each logit's error over the largest magnitude, TF32 off."""
+    """gemma-7b, internlm2-20b, minicpm-2b and moonshot-v1-16b-a3b (two
+    router columns tied) at their published widths cut to LM_HELD_LAYERS
+    layers, float32, drawn on the card from a seeded CUDA generator and
+    copied to the CPU: ``prefill`` of 2 x LM_HELD_PROMPT tokens and
+    LM_HELD_STEPS decode steps (the pipeline's next tokens) on both; each
+    logit's error over the largest magnitude, TF32 off."""
+    import copy
     import dataclasses
 
     import torch
@@ -2080,11 +2118,12 @@ def phase_lm_held_to_cpu():
     for arch_id in LM_HELD_ARCHS:
         cfg = dataclasses.replace(get_arch(arch_id).config, n_layers=LM_HELD_LAYERS,
                                   param_dtype=torch.float32)
-        t0 = time.perf_counter()
-        host = tfm.Transformer(cfg, device="cpu", seed=0)
-        build_s = time.perf_counter() - t0
         card = tfm.Transformer(cfg, generator=torch.Generator("cuda").manual_seed(0))
-        card.load_state_dict(host.state_dict())
+        if cfg.is_moe:
+            _tie_router(card)
+        t0 = time.perf_counter()
+        host = copy.deepcopy(card).to("cpu")
+        build_s = time.perf_counter() - t0
         tokens = TokenPipeline(vocab=cfg.vocab, batch=2, seq_len=LM_HELD_PROMPT + LM_HELD_STEPS,
                                seed=0, device="cpu").batch_at(0)
         runs, secs = {}, {}
@@ -2106,7 +2145,8 @@ def phase_lm_held_to_cpu():
         err = float((runs["cuda"] - want).abs().max() / want.abs().max())
         out[arch_id] = {"params": cfg.param_count(), "d_model": cfg.d_model,
                         "err_over_max": err, "finite": bool(torch.isfinite(runs["cuda"]).all()),
-                        "cpu_build_s": build_s, "cpu_s": secs["cpu"], "card_s": secs["cuda"]}
+                        "router_tied": cfg.is_moe, "copy_to_cpu_s": build_s,
+                        "cpu_s": secs["cpu"], "card_s": secs["cuda"]}
         del host, card, cache
         torch.cuda.empty_cache()
     launches = dict(build.launches)
@@ -2117,6 +2157,46 @@ def phase_lm_held_to_cpu():
         raise AssertionError(f"lm_held_to_cpu: {bad}, launches {launches}")
 
 
+def _torch_topk_two_stage(scores, k: int, shards: int = 16):
+    """``sharded_topk`` with ``torch.topk`` in both stages, so among equal
+    scores any index (the route without the tie-break; timed beside it)."""
+    import torch
+
+    B, V = scores.shape
+    v1, i1 = torch.topk(scores.reshape(B, shards, V // shards), k, dim=-1)
+    base = (torch.arange(shards, device=scores.device) * (V // shards))[None, :, None]
+    gidx = (i1 + base).reshape(B, shards * k)
+    v2, i2 = torch.topk(v1.reshape(B, shards * k), k, dim=-1)
+    return v2, torch.gather(gidx, 1, i2)
+
+
+def _serve_bulk_in_turns(step, model, batch):
+    """serve_bulk with ``torch.topk``'s two stages, then the port's tie-exact
+    ``sharded_topk`` twice, then ``torch.topk``'s again (CUDA events): the
+    tie-break's cost; the values of the two routes are equal."""
+    import numpy as np
+
+    from repro_torch.launch import steps as steps_mod
+
+    exact = steps_mod.sharded_topk
+    secs = {"torch_topk": [], "lower_index": []}
+    outs = {}
+    try:
+        for route in ("torch_topk", "lower_index", "lower_index", "torch_topk"):
+            steps_mod.sharded_topk = _torch_topk_two_stage if route == "torch_topk" else exact
+            t, outs[route] = cuda_ms(lambda: step(model, batch))
+            secs[route].append(t / 1e3)
+    finally:
+        steps_mod.sharded_topk = exact
+    same_values = bool((outs["torch_topk"][0] == outs["lower_index"][0]).all())
+    if not same_values:
+        raise AssertionError("serve_bulk: the two top-k routes returned other values")
+    return {"seconds": secs, "median_s": {k: float(np.median(v)) for k, v in secs.items()},
+            "same_values": same_values,
+            "same_index_share": float((outs["torch_topk"][1] == outs["lower_index"][1])
+                                      .float().mean())}
+
+
 def phase_recsys_serve():
     """BERT4Rec at its published config (1,048,576 items x 64, 2 blocks, 2
     heads, seq 200, float32), built from seed 0, on its three serving
@@ -2124,8 +2204,9 @@ def phase_recsys_serve():
     RECSYS_P99_BATCHES timed after one warm-up), serve_bulk (262,144 users
     in 64 chunks of 4,096, each a 17.2 GB block of scores, top 100) and
     retrieval_cand (1 user x 1,000,000 candidates drawn with replacement,
-    top 100); then one serve_p99 batch's scores and top 100 on the card
-    against the CPU."""
+    top 100), serve_bulk again with ``torch.topk``'s two stages in turns with
+    the tie-exact ``sharded_topk`` (``_serve_bulk_in_turns``); then one
+    serve_p99 batch's scores and top 100 on the card against the CPU."""
     import numpy as np
     import torch
 
@@ -2173,7 +2254,9 @@ def phase_recsys_serve():
     out["serve_bulk"] = {"users": shape.batch, "chunks": shape.batch // 4096, "seconds": t / 1e3,
                          "users_per_s": shape.batch / (t / 1e3), "batch_gen_s": gen_s,
                          "out_shape": list(vals.shape), "finite": bool(torch.isfinite(vals).all())}
-    del batch, vals, idxs
+    del vals, idxs
+    out["serve_bulk_top_k"] = _serve_bulk_in_turns(make_recsys_step(arch, shape), model, batch)
+    del batch
     shape = arch.shapes["retrieval_cand"]
     batch = pipe(shape, 2).batch_at(0)
     batch["candidates"] = torch.from_numpy(np.random.default_rng(2).integers(
@@ -2202,10 +2285,280 @@ def phase_recsys_serve():
     emit("recsys_serve", arch="bert4rec", items=cfg.item_vocab, embed_dim=cfg.embed_dim,
          seq_len=cfg.seq_len, seconds={"build": build_s}, shapes=out, peak_bytes=peak,
          serve_p99_vs_cpu=check, launches=launches)
-    finite = all(v["finite"] for v in out.values())
+    finite = all(v["finite"] for v in out.values() if "finite" in v)
     if (launches or not finite or check["scores_err_over_max"] > RECSYS_RTOL
             or check["top100_err_over_max"] > RECSYS_RTOL):
         raise AssertionError(f"recsys_serve: launches {launches}, finite {finite}, {check}")
+
+
+def _train_step_held(label, card, make_step, batch, lr):
+    """One train step of ``card`` (a model on the card) and of a CPU copy of
+    it, each with its own AdamW at ``lr``: the loss within GNN_LOSS_RTOL,
+    each gradient within GNN_GRAD_RTOL of max(its largest magnitude, 1e-3)
+    (``grad_errors``), and each parameter after the step within 2 * lr of
+    the CPU's (the first update is about lr * sign(g), so a gradient that
+    is rounding noise may take the other sign; ``moved_share`` counts the
+    entries further apart than 1e-6). Frees the CPU copy."""
+    import copy
+
+    import torch
+
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.testing.gnn_check import grad_errors
+
+    t0 = time.perf_counter()
+    host = copy.deepcopy(card).to("cpu")
+    copy_s = time.perf_counter() - t0
+    runs = {}
+    for name, model in (("cpu", host), ("cuda", card)):
+        dev = next(model.parameters()).device
+        opt = AdamW(model.parameters(), AdamWConfig(lr=lr))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = make_step(dev)(model, opt, batch)
+        loss = float(out["loss"])
+        runs[name] = {"loss": loss, "grad_norm": float(out["grad_norm"]),
+                      "seconds": time.perf_counter() - t0}
+        del opt
+    errs = grad_errors(card, {n: p.grad for n, p in host.named_parameters()})
+    worst = max(errs, key=errs.get)
+    param_err, moved, total = 0.0, 0, 0
+    for (name, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        param_err = max(param_err, float(diff.max()))
+        moved += int((diff > 1e-6).sum())
+        total += diff.numel()
+    del host
+    want = runs["cpu"]["loss"]
+    check = {"loss": runs["cuda"]["loss"], "loss_cpu": want,
+             "loss_rel_err": abs(runs["cuda"]["loss"] - want) / abs(want),
+             "grad_norm": runs["cuda"]["grad_norm"], "grad_norm_cpu": runs["cpu"]["grad_norm"],
+             "grad_err_over_max": errs[worst], "worst_grad": worst,
+             "param_max_abs_err": param_err, "param_bound": 2 * lr,
+             "moved_share": moved / max(total, 1), "lr": lr, "card_s": runs["cuda"]["seconds"],
+             "cpu_s": runs["cpu"]["seconds"], "copy_to_cpu_s": copy_s}
+    if not (check["loss_rel_err"] <= GNN_LOSS_RTOL and errs[worst] <= GNN_GRAD_RTOL
+            and param_err <= 2 * lr * (1 + 1e-3) + 1e-6):
+        raise AssertionError(f"{label}: the train step on the card differs from the CPU: {check}")
+    return check
+
+
+def _state_bytes(model, opt) -> dict:
+    """Bytes of the weights, their gradients and the AdamW moments."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    moments = sum(t.numel() * t.element_size() for st in opt.state.values()
+                  for k, t in st.items() if k in ("m", "v"))
+    return {"weights": weights, "gradients": weights, "moments": moments,
+            "total": 2 * weights + moments}
+
+
+def _lm_train_ops(cfg, B, S):
+    """Model operations of one train step: 6 x the multiplied weights (the
+    layers' projections and the head) x tokens, plus the causal half of the
+    attention products (QK and PV) forward and backward (x 3)."""
+    import math
+
+    from repro_torch.models.param import iter_specs
+    from repro_torch.models.transformer import param_specs
+
+    specs = dict(iter_specs(param_specs(cfg)))
+    matmul = sum(math.prod(specs[f"layers.{k}"].shape) for k in ("wq", "wk", "wv", "wo", "w1", "w2"))
+    matmul += math.prod(specs["lm_head"].shape)
+    attn = 3 * 2 * 2 * B * cfg.n_layers * cfg.n_heads * cfg.d_head * S * (S + 1) // 2
+    return 6 * matmul * B * S + attn, matmul
+
+
+def phase_lm_train():
+    """minicpm-2b at its published config (40 layers, d 2,304, 36 heads of 64,
+    SwiGLU 5,760, vocab 122,753; bf16 weights drawn on the card from a
+    seeded CUDA generator; ``default_opt_cfg``: float32 moments) on
+    train_4k's 4,096-token sequences, LM_TRAIN_BATCH a step from
+    ``TokenPipeline(seed=0)``: LM_TRAIN_STEPS ``make_lm_train_step`` steps
+    at the WSD schedule's rates (warm-up, stable and decay one step each),
+    each timed with CUDA events; ms a step (median of steps 2 on), tokens/s,
+    peak memory, the state's bytes, loss and gradient norm of every step
+    (finite) and the model-FLOP share (``mfu_bf16``: ``_lm_train_ops`` over
+    the bf16 dense peak)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import default_opt_cfg, lm_shape_config, make_lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamW, wsd_schedule
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch = get_arch(LM_TRAIN_ARCH)
+    cfg, shape = arch.config, arch.shapes["train_4k"]
+    B, S = LM_TRAIN_BATCH, shape.seq_len
+    opt_cfg = default_opt_cfg(arch)
+    torch.cuda.empty_cache()
+    resident, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    model = tfm.Transformer(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(model.parameters(), opt_cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    step = make_lm_train_step(arch, shape, opt_cfg)
+    pipe = TokenPipeline(cfg.vocab, B, S, seed=0)
+    build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(LM_TRAIN_STEPS):
+        tokens = pipe.batch_at(i)
+        lr = float(wsd_schedule(i, opt_cfg.lr, warmup=1, stable=1, decay=1))
+        ms, out = cuda_ms(lambda: step(model, opt, {"tokens": tokens}, lr=lr))
+        steps.append({"ms": ms, "lr": lr, "loss": float(out["loss"]),
+                      "grad_norm": float(out["grad_norm"])})
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.launches)
+    state = _state_bytes(model, opt)
+    ms = float(np.median([s["ms"] for s in steps[1:]]))
+    ops, matmul_params = _lm_train_ops(cfg, B, S)
+    tcfg = lm_shape_config(arch, shape)
+    finite = all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps)
+    emit("lm_train", arch=LM_TRAIN_ARCH, shape="train_4k", params=cfg.param_count(),
+         n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads, vocab=cfg.vocab,
+         batch=B, seq_len=S, attn_chunk=tcfg.attn_chunk, attn_par=tcfg.attn_par,
+         loss_chunk=tcfg.loss_chunk, remat=tcfg.remat, moment_dtype=str(opt_cfg.moment_dtype),
+         reduced={"train_4k.global_batch": f"256 -> {B}",
+                  "why": f"one card holds 80 GB: the state is {state['total'] / 1e9:.2f} GB and "
+                         f"a sequence's [{cfg.n_heads}, {S}, {S}] float32 score block is "
+                         f"{cfg.n_heads * S * S * 4 / 1e9:.2f} GB, held with its probabilities "
+                         "through its backward"},
+         seconds={"build_on_card": build_s}, steps=steps, step_ms=ms,
+         tokens_per_s=B * S / (ms / 1e3), model_ops=ops, matmul_params=matmul_params,
+         mfu_bf16=ops / (ms / 1e3) / BF16_OPS_PER_S, peak_bytes=peak,
+         resident_before_bytes=resident, reserved_before_bytes=reserved, state_bytes=state,
+         finite=finite, launches=launches)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    if launches or not finite:
+        raise AssertionError(f"lm_train: launches {launches}, finite {finite}: {steps}")
+
+
+def phase_lm_train_held_to_cpu():
+    """minicpm-2b and moonshot-v1-16b-a3b (two router columns tied: the
+    routing tie-break is held too) at their published widths cut to 2
+    layers, float32, drawn on the card from a seeded CUDA generator: one
+    ``make_lm_train_step`` step on 2 x LM_TRAIN_HELD_TOKENS tokens on the
+    card and on a CPU copy (``_train_step_held``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    build.launches.clear()
+    for arch_id in LM_TRAIN_HELD_ARCHS:
+        arch = get_arch(arch_id)
+        cfg = dataclasses.replace(arch.config, n_layers=2, param_dtype=torch.float32)
+        arch = dataclasses.replace(arch, config=cfg)
+        shape = ShapeSpec("held", "train", seq_len=LM_TRAIN_HELD_TOKENS, global_batch=2)
+        card = tfm.Transformer(cfg, generator=torch.Generator("cuda").manual_seed(0))
+        if cfg.is_moe:
+            _tie_router(card)
+        tokens = TokenPipeline(cfg.vocab, 2, LM_TRAIN_HELD_TOKENS, seed=0, device="cpu").batch_at(0)
+        lr = AdamWConfig().lr
+        out[arch_id] = {"params": cfg.param_count(), "d_model": cfg.d_model,
+                        "router_tied": cfg.is_moe, **_train_step_held(
+                            f"lm_train_held_to_cpu {arch_id}", card,
+                            lambda dev: make_lm_train_step(arch, shape, AdamWConfig(lr=lr), device=dev),
+                            {"tokens": tokens}, lr)}
+        del card
+        torch.cuda.empty_cache()
+    launches = dict(build.launches)
+    emit("lm_train_held_to_cpu", n_layers=2, tokens=[2, LM_TRAIN_HELD_TOKENS], dtype="float32",
+         models=out, launches=launches)
+    if launches:
+        raise AssertionError(f"lm_train_held_to_cpu launched {launches}")
+
+
+def phase_recsys_train():
+    """BERT4Rec at its published config (1,048,576 items x 64, 2 blocks, 2
+    heads, seq 200, n_mask 40, 8,192 shared negatives, float32), drawn on
+    the card from a seeded CUDA generator: one ``make_recsys_step`` train
+    step of RECSYS_HELD_USERS users on a copy on the card and on the CPU
+    (``_train_step_held``), then RECSYS_TRAIN_STEPS steps of
+    RECSYS_TRAIN_BATCH users from ``RecsysPipeline(seed=0)``, each timed
+    with CUDA events: ms a step (median of steps 2 on), users/s, peak
+    memory and the state's bytes."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import default_opt_cfg, make_recsys_step
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.optim import AdamW
+
+    arch = get_arch("bert4rec")
+    cfg = arch.config
+    opt_cfg = default_opt_cfg(arch)
+    shape = dataclasses.replace(arch.shapes["train_batch"], batch=RECSYS_TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = b4r.Bert4Rec(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def pipe(users, seed, device=None):
+        return RecsysPipeline(cfg.item_vocab, users, cfg.seq_len, cfg.n_mask, cfg.n_negatives,
+                              cfg.n_context, seed=seed, device=device)
+
+    build.launches.clear()
+    held_shape = dataclasses.replace(shape, batch=RECSYS_HELD_USERS)
+    check = _train_step_held(
+        "recsys_train", copy.deepcopy(model),
+        lambda dev: make_recsys_step(arch, held_shape, opt_cfg, device=dev),
+        pipe(RECSYS_HELD_USERS, 1, "cpu").batch_at(0), opt_cfg.lr)
+    torch.cuda.empty_cache()
+    opt = AdamW(model.parameters(), opt_cfg)
+    step = make_recsys_step(arch, shape, opt_cfg)
+    t0 = time.perf_counter()
+    batches = [pipe(RECSYS_TRAIN_BATCH, 0).batch_at(i) for i in range(RECSYS_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for b in batches:
+        ms, out = cuda_ms(lambda: step(model, opt, b))
+        steps.append({"ms": ms, "loss": float(out["loss"]), "grad_norm": float(out["grad_norm"])})
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.launches)
+    ms = float(np.median([s["ms"] for s in steps[1:]]))
+    B = RECSYS_TRAIN_BATCH
+    logits_bytes = B * cfg.n_mask * (1 + cfg.n_negatives) * 4
+    finite = all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps)
+    emit("recsys_train", arch="bert4rec", items=cfg.item_vocab, embed_dim=cfg.embed_dim,
+         seq_len=cfg.seq_len, n_mask=cfg.n_mask, n_negatives=cfg.n_negatives, users=B,
+         reduced={"train_batch.batch": f"65536 -> {B}",
+                  "why": f"the [B, {cfg.n_mask}, {1 + cfg.n_negatives}] float32 logits are "
+                         f"{logits_bytes / 1e9:.1f} GB at {B} users, "
+                         f"{65536 * cfg.n_mask * (1 + cfg.n_negatives) * 4 / 1e9:.0f} GB at "
+                         "65,536, and the loss holds several such blocks"},
+         seconds={"build_on_card": build_s, "batch_gen": gen_s}, steps=steps, step_ms=ms,
+         users_per_s=B / (ms / 1e3), peak_bytes=peak, logits_block_bytes=logits_bytes,
+         state_bytes=_state_bytes(model, opt), held_to_cpu=check, finite=finite,
+         launches=launches)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    if launches or not finite:
+        raise AssertionError(f"recsys_train: launches {launches}, finite {finite}: {steps}")
 
 
 def main():
@@ -2218,6 +2571,12 @@ def main():
 
     device, smi = phase_device()
     phase_build()
+    # the training phases first, on an empty card: minicpm-2b's step at its
+    # batch peaks at ~76 GB, and after the serving phases in the same process
+    # it ran out of memory with 19.6 GiB reserved by the allocator and free
+    phase_lm_train()
+    phase_lm_train_held_to_cpu()
+    phase_recsys_train()
     config, stream, cfg, gen_s, h2d_s = paper_stream()
     max_err, timed = phase_kernel_vs_plain(stream, cfg, config.K)
     wave_checks = phase_wave_kernels_vs_plain(stream, cfg)

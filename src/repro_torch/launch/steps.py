@@ -1,19 +1,20 @@
 """(arch x shape) -> step functions: the JAX package's ``repro.launch.steps``
-for the GNN train steps and the LM and recsys serving steps.
+for the GNN, LM and recsys train steps and the LM and recsys serving steps.
 
 * GNNs: the shape's config (:func:`gnn_shape_config`), the padded batch
   dimensions (:func:`gnn_batch_dims`), the spec trees of one step's inputs
   and state, the model, and a train step (:func:`make_gnn_train_step`);
-* LMs: the shape's config (:func:`lm_shape_config`), the input specs, and
-  the prefill and decode steps (:func:`make_lm_prefill`,
-  :func:`make_lm_decode`);
-* BERT4Rec: the input specs, the two-stage top-k (:func:`sharded_topk`)
-  and the serving and retrieval steps (:func:`make_recsys_step`).
+* LMs: the shape's config (:func:`lm_shape_config`), the input and state
+  specs, the train step (:func:`make_lm_train_step`) and the prefill and
+  decode steps (:func:`make_lm_prefill`, :func:`make_lm_decode`);
+* BERT4Rec: the input and state specs, the two-stage top-k
+  (:func:`sharded_topk`) and the train, serving and retrieval steps
+  (:func:`make_recsys_step`);
+* :func:`default_opt_cfg`: bf16 moments above 100 B parameters.
 
 Each step runs on the ``device`` it was made for (None: the CUDA card) and
-moves its batch there. The LM and recsys train steps, ``lm_state_specs``
-and ``arch_rules`` (the logical-axis -> mesh-axis map of the dry-run) are
-not ported yet (ROADMAP.md §1 item 14).
+moves its batch there. ``arch_rules`` (the logical-axis -> mesh-axis map of
+the dry-run) and ``build_step`` are not ported yet (ROADMAP.md §1 item 14).
 """
 from __future__ import annotations
 
@@ -116,14 +117,20 @@ def make_gnn_model(arch: ArchSpec, shape: ShapeSpec, device=None, seed: int = 0)
     return _gnn_module(arch).MODEL(gnn_shape_config(arch, shape), device=device, seed=seed)
 
 
+def _descend(opt: AdamW, loss, lr) -> dict:
+    """``loss``'s gradients (fresh) and one :class:`AdamW` step at ``lr``
+    (None: the optimizer's); ``{"loss", "grad_norm"}`` (the norm before
+    clipping)."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    return {"loss": loss.detach(), "grad_norm": opt.step(lr=lr)}
+
+
 def train_step(model, opt: AdamW, batch: GraphBatch, lr: float | None = None) -> dict:
     """One step on the batch's device: the loss, its gradients, one
     :class:`AdamW` step (at ``lr``, else the optimizer's); ``{"loss",
     "grad_norm"}`` (the norm before clipping). Updates in place."""
-    loss = model.loss_fn(batch)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    return {"loss": loss.detach(), "grad_norm": opt.step(lr=lr)}
+    return _descend(opt, model.loss_fn(batch), lr)
 
 
 def make_gnn_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, device=None):
@@ -177,6 +184,12 @@ def lm_shape_config(arch: ArchSpec, shape: ShapeSpec) -> tfm.TransformerConfig:
     return dataclasses.replace(cfg, unroll=False, moe_groups=groups)
 
 
+def lm_state_specs(arch: ArchSpec, opt_cfg: AdamWConfig):
+    """(parameter spec tree, AdamW state spec tree) at the arch's config."""
+    pspec_tree = tfm.param_specs(arch.config)
+    return pspec_tree, adamw_init_specs(pspec_tree, opt_cfg)
+
+
 def lm_input_specs(arch: ArchSpec, shape: ShapeSpec):
     cfg: tfm.TransformerConfig = arch.config
     B, S = shape.global_batch, shape.seq_len
@@ -193,6 +206,24 @@ def lm_input_specs(arch: ArchSpec, shape: ShapeSpec):
             "token": ArraySpec((B,), ("cache_batch",), torch.int32, "zeros"),
         }
     raise ValueError(shape.kind)
+
+
+def make_lm_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, device=None):
+    """``step(model, opt, batch, lr=None) -> {"loss", "grad_norm"}``: the
+    next-token loss of ``batch["tokens"]`` (:func:`tfm.loss_fn` at the
+    shape's config: layers, attention steps and loss chunks checkpointed),
+    its gradients and one :class:`AdamW` step at ``lr`` (default
+    ``opt_cfg.lr``, as the reference's step; a trainer passes its
+    schedule's), on ``device`` (None: the card). The model and the
+    optimizer are updated in place."""
+    cfg = lm_shape_config(arch, shape)
+    dev = resolve_device(device)
+
+    def step(model: tfm.Transformer, opt: AdamW, batch, lr: float | None = None):
+        loss = tfm.loss_fn(model, batch["tokens"].to(dev), cfg)
+        return _descend(opt, loss, opt_cfg.lr if lr is None else lr)
+
+    return step
 
 
 def make_lm_prefill(arch: ArchSpec, shape: ShapeSpec, device=None, max_len=None):
@@ -258,36 +289,106 @@ def recsys_input_specs(arch: ArchSpec, shape: ShapeSpec):
     return base
 
 
+def recsys_state_specs(arch: ArchSpec, opt_cfg: AdamWConfig):
+    """(parameter spec tree, AdamW state spec tree) at the arch's config."""
+    pspec_tree = b4r.param_specs(arch.config)
+    return pspec_tree, adamw_init_specs(pspec_tree, opt_cfg)
+
+
+def _topk_at_tied_kth(rows, k: int):
+    """:func:`topk_lower_index` of rows [R, n] whose k-th value ties with
+    entries past it: ``torch.topk``'s k-th value ``t`` bounds the answer,
+    every entry above ``t`` is in it, then the lowest-indexed entries equal
+    to ``t`` (one more pass over the rows: ``rows >= t`` and its nonzero
+    entries, in index order). Returns (values, indices) [R, k], unordered."""
+    R = rows.shape[0]
+    t = torch.topk(rows, k, dim=-1).values[:, k - 1]  # [R]
+    r, c = torch.nonzero(rows >= t[:, None], as_tuple=True)  # row-major: index order
+    v = rows[r, c]
+    above = v > t[r]
+    ties = (~above).long()
+    # each tie's rank within its row: a running count less the count before the row
+    count = torch.bincount(r, minlength=R)
+    first = torch.cumsum(count, 0) - count
+    rank = torch.cumsum(ties, 0) - ties
+    rank = rank - rank[first][r]
+    need = k - torch.zeros(R, dtype=torch.long, device=rows.device).index_add_(0, r, above.long())
+    keep = above | (rank < need[r])
+    return v[keep].reshape(R, k), c[keep].reshape(R, k)
+
+
+def topk_lower_index(x, k: int):
+    """``jax.lax.top_k`` over the last axis of ``x``: (values, indices) of the
+    ``k`` largest, descending, and among equal values the lower index first
+    (at the k-th place too: of the entries equal to the k-th value, the
+    lowest-indexed are kept). ``torch.topk`` keeps any of equal values.
+    Its ``k + 1`` largest tell which rows it may have chosen wrongly: where
+    the (k+1)-th value is below the k-th, the top k are exactly the entries
+    at or above the k-th value, and only their order needs fixing; the
+    other rows (ties across the k-th place) go through
+    :func:`_topk_at_tied_kth`. The k are then ordered by (value descending,
+    index ascending)."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, n)
+    v, i = torch.topk(rows, min(k + 1, n), dim=-1)
+    vals, idx = v[:, :k], i[:, :k]
+    if n > k:
+        tied = torch.nonzero(v[:, k] == v[:, k - 1]).squeeze(1)
+        if tied.numel():
+            tv, ti = _topk_at_tied_kth(rows[tied], k)
+            vals, idx = vals.index_copy(0, tied, tv), idx.index_copy(0, tied, ti)
+    idx, order = torch.sort(idx, dim=-1)
+    vals, order = torch.sort(torch.gather(vals, 1, order), dim=-1, descending=True, stable=True)
+    return vals.reshape(*lead, k), torch.gather(idx, 1, order).reshape(*lead, k)
+
+
 def sharded_topk(scores, k: int, shards: int = 16):
     """Two-stage top-k that never sorts the full score row: the top ``k`` of
-    each of ``shards`` equal slices, then the top ``k`` of those. Returns
-    (values [B, k], global indices [B, k]), values descending."""
+    each of ``shards`` equal slices (:func:`topk_lower_index`), then the top
+    ``k`` of those ``shards * k`` by a stable descending sort; both break
+    ties as ``jax.lax.top_k`` does (the lower index, the lower position), so
+    the ids are the reference's. Returns (values [B, k], global indices
+    [B, k]), values descending."""
     B, V = scores.shape
     assert V % shards == 0
     s = scores.reshape(B, shards, V // shards)
-    v1, i1 = torch.topk(s, k, dim=-1)  # [B, shards, k] (local per shard)
+    v1, i1 = topk_lower_index(s, k)  # [B, shards, k] (local per shard)
     base = (torch.arange(shards, device=scores.device) * (V // shards))[None, :, None]
     gidx = (i1 + base).reshape(B, shards * k)
-    v2, i2 = torch.topk(v1.reshape(B, shards * k), k, dim=-1)
-    return v2, torch.gather(gidx, 1, i2)
+    v2, i2 = torch.sort(v1.reshape(B, shards * k), dim=-1, descending=True, stable=True)
+    return v2[:, :k], torch.gather(gidx, 1, i2[:, :k])
 
 
-def make_recsys_step(arch: ArchSpec, shape: ShapeSpec, device=None):
-    """``step(model, batch) -> (values [B, 100], item ids [B, 100])`` on
-    ``device`` (None: the card), the batch moved there. ``retrieval``: one
-    user's scores against ``batch["candidates"]`` and their top 100 (ids
-    index the candidate list); ``serve_scores``: the users in chunks of
-    ``min(B, 4096)``, each scored against the full item table (a [4096,
-    V] float32 block) and reduced to its top 100 by :func:`sharded_topk`.
-    Training (the ``train`` kind) is not ported yet (ROADMAP.md §1 item 14)."""
+def make_recsys_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig | None = None,
+                     device=None):
+    """The shape's step on ``device`` (None: the card), the batch moved there.
+
+    * ``train``: ``step(model, opt, batch) -> {"loss", "grad_norm"}``, the
+      cloze loss (:func:`b4r.loss_fn`), its gradients and one
+      :class:`AdamW` step at ``opt_cfg.lr`` (None: the optimizer's); the
+      model and the optimizer are updated in place;
+    * ``retrieval``: ``step(model, batch) -> (values [B, 100], ids [B,
+      100])``, one user's scores against ``batch["candidates"]`` and their
+      top 100 (ids index the candidate list);
+    * ``serve_scores``: the same outputs for the users in chunks of
+      ``min(B, 4096)``, each scored against the full item table (a [4096,
+      V] float32 block) and reduced to its top 100 by :func:`sharded_topk`.
+
+    The serving steps record no autograd graph."""
     dev = resolve_device(device)
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "the recsys train step is not ported yet (ROADMAP.md §1 item 14)")
     cfg: b4r.Bert4RecConfig = arch.config
+
+    if shape.kind == "train":
+        lr = None if opt_cfg is None else opt_cfg.lr
+
+        def step(model: b4r.Bert4Rec, opt: AdamW, batch):
+            return _descend(opt, b4r.loss_fn(model, {k: v.to(dev) for k, v in batch.items()}), lr)
+
+        return step
 
     if shape.kind == "retrieval":
 
+        @torch.no_grad()
         def step(model: b4r.Bert4Rec, batch):
             scores = b4r.score_candidates(
                 model, batch["item_ids"].to(dev), batch["context_ids"].to(dev),
@@ -311,3 +412,11 @@ def make_recsys_step(arch: ArchSpec, shape: ShapeSpec, device=None):
         return torch.cat(vals), torch.cat(idxs)
 
     return step
+
+
+def default_opt_cfg(arch: ArchSpec) -> AdamWConfig:
+    """The reference's: bf16 Adam moments above 100 B parameters (halves the
+    optimizer's memory: grok-1-314b), float32 below."""
+    if arch.family == "lm" and arch.config.param_count() > 100e9:
+        return AdamWConfig(moment_dtype=torch.bfloat16)
+    return AdamWConfig()

@@ -1,5 +1,6 @@
-"""BERT4Rec — arXiv:1904.06690: serving. Bidirectional transformer over
-item sequences; the JAX package's ``repro.models.bert4rec``.
+"""BERT4Rec — arXiv:1904.06690. Bidirectional transformer over item
+sequences with masked-item (cloze) training; the JAX package's
+``repro.models.bert4rec``.
 
 Assigned: embed_dim=64, n_blocks=2, n_heads=2, seq_len=200, bidirectional.
 :class:`Bert4Rec` holds the reference's parameter tree (the blocks a list
@@ -7,9 +8,12 @@ of dicts: ``layers.0.wqkv``), so its ``state_dict`` keys are the
 reference's leaves. Serving scores the last position's representation
 against the full item table (:func:`serve_scores`) or a candidate set
 (:func:`score_candidates`); a context EmbeddingBag (``models/embedding.py``)
-pools multi-hot user-context ids into the sequence. ``loss_fn`` (sampled
-softmax) belongs to the training path. The reference's ``jax.nn.gelu`` is
-the tanh approximation.
+pools multi-hot user-context ids into the sequence. Training
+(:func:`loss_fn`) is the cloze loss under a sampled softmax over shared
+negatives with the logQ correction: no [B, S, V] logits. Rows are read as
+``jnp.take`` reads them (an id outside the table reads NaN, and its
+gradient is dropped). The reference's ``jax.nn.gelu`` is the tanh
+approximation.
 """
 from __future__ import annotations
 
@@ -105,6 +109,37 @@ def encode(model: Bert4Rec, item_ids, context_ids):
         h2 = _ln(x, lp.ln2, cfg.norm_eps)
         x = x + F.gelu(h2 @ lp.w1 + lp.b1, approximate="tanh") @ lp.w2 + lp.b2
     return _ln(x, model.ln_f, cfg.norm_eps)
+
+
+def take_along_positions(h, pos):
+    """``jnp.take_along_axis(h, pos[..., None], axis=1)``: h [B, S, d], pos
+    int [B, m] -> [B, m, d]; a negative position counts from the end, one
+    outside [-S, S) reads NaN."""
+    S = h.shape[1]
+    idx = pos.long()
+    idx = torch.where(idx < 0, idx + S, idx)
+    outside = (idx < 0) | (idx >= S)
+    rows = torch.gather(h, 1, idx.clamp(0, S - 1)[..., None].expand(-1, -1, h.shape[-1]))
+    return rows.masked_fill(outside[..., None], float("nan"))
+
+
+def loss_fn(model: Bert4Rec, batch: dict):
+    """Cloze loss with sampled softmax (the reference's ``loss_fn``).
+
+    batch: item_ids [B, S], context_ids [B, nc], mask_pos [B, n_mask],
+    labels [B, n_mask], negatives [n_neg] (shared), neg_logq [n_neg] float32
+    (the log sampling probability, subtracted from the negatives' logits).
+    The mean over masked positions of ``logsumexp([pos, neg - logq]) -
+    pos``."""
+    h = encode(model, batch["item_ids"], batch["context_ids"])
+    hm = take_along_positions(h, batch["mask_pos"])  # [B, n_mask, d]
+    pos_emb = take_rows(model.items, batch["labels"])  # [B, n_mask, d]
+    neg_emb = take_rows(model.items, batch["negatives"])  # [n_neg, d]
+    pos_logit = (hm * pos_emb).sum(-1, keepdim=True).float()
+    neg_logit = torch.matmul(hm, neg_emb.T).float() - batch["neg_logq"][None, None, :]
+    logits = torch.cat([pos_logit, neg_logit], dim=-1)
+    # logits[..., 0] is pos_logit: its gradient needs no [B, n_mask, 1 + n_neg] zeros
+    return (torch.logsumexp(logits, -1) - pos_logit[..., 0]).mean()
 
 
 @torch.no_grad()

@@ -4,23 +4,29 @@
 table [V, D]; bags are (ids [B, bag], weights?) -> pooled [B, D]. Rows are
 read as ``jnp.take`` reads them (:func:`take_rows`): a negative id counts
 from the end, an id outside [-V, V) reads NaN; ``valid`` masks padding ids
-after the gather, as the reference's ``where`` does.
+after the gather, as the reference's ``where`` does. The rows are read
+through ``F.embedding``, whose backward sums the rows of one id in sorted
+segments: indexing's backward (``index_put_`` with ``accumulate``) walks
+an id's duplicates one after another, and zipf-skewed ids made it half of
+a BERT4Rec train step (PERF.md §6).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.graph.segment import segment_max, segment_mean, segment_sum
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)``: rows [*ids.shape, D]; -1 is the last
-    row, an id outside [-V, V) a row of NaN (``index_select`` would raise)."""
+    row, an id outside [-V, V) a row of NaN (``index_select`` would raise)
+    that takes no gradient."""
     V = table.shape[0]
     idx = ids.long()
     idx = torch.where(idx < 0, idx + V, idx)
     outside = (idx < 0) | (idx >= V)
-    return table[idx.clamp(0, V - 1)].masked_fill_(outside[..., None], float("nan"))
+    return F.embedding(idx.clamp(0, V - 1), table).masked_fill_(outside[..., None], float("nan"))
 
 
 def embedding_bag(table, ids, mode: str = "sum", weights=None, valid=None):

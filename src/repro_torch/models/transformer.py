@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM family (dense GQA + MoE variants): serving.
+"""Decoder-only transformer LM family (dense GQA + MoE variants).
 
 Covers internlm2-20b, minicpm-2b, gemma-7b (dense) and
 moonshot-v1-16b-a3b, grok-1-314b (MoE); the JAX package's
@@ -7,8 +7,8 @@ declared as the reference's tree of :class:`ArraySpec` with the layers
 **stacked** (one ``[n_layers, ...]`` parameter per leaf, ``layers.wq``
 and so on, indexed per layer in a Python loop), so its ``state_dict`` keys
 are the reference's leaves. The functions take the module where the
-reference takes its parameter tree: :func:`backbone`, :func:`prefill` and
-:func:`decode_step`; ``loss_fn`` belongs to the training path.
+reference takes its parameter tree: :func:`backbone`, :func:`loss_fn`,
+:func:`prefill` and :func:`decode_step`.
 
 Precision follows the reference at every point. Operands of different
 dtypes are promoted as ``jnp`` promotes them: gemma's embedding scale is a
@@ -41,9 +41,16 @@ is the head count there, which makes the attention scores of a published
 width ~190 wide and a deep model chaotic; ROADMAP.md §3). Parity tests
 carry the reference's weights across, so no computation differs.
 
-``unroll`` and ``remat`` are accepted and change nothing here: the layer
-and chunk loops are Python loops, and serving keeps no activations for a
-backward pass.
+Where autograd records (a training step), each layer, each attention
+query step and each loss chunk runs under ``torch.utils.checkpoint`` when
+``remat`` is set, as the reference's ``jax.checkpoint`` does, and the
+softmax, the causal mask and the GLU product work out of place. Under
+``torch.no_grad`` (prefill and decode) nothing is checkpointed and those
+three work in place, which is what keeps a 32K prefill's score blocks and
+FFN hidden within one card. ``unroll`` is accepted and changes nothing:
+the layer and chunk loops are Python loops. A stacked leaf's gradient is
+written layer by layer into one buffer (:class:`_LayerSlice`), not summed
+from a leaf-sized tensor per layer.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.distributed.sharding import constrain
@@ -92,7 +100,7 @@ class TransformerConfig:
     loss_chunk: int = 512
     logit_softcap: float = 0.0
     embed_scale: bool = False  # gemma: embeddings * sqrt(d_model)
-    remat: bool = True  # accepted; serving keeps no activations
+    remat: bool = True  # checkpoint layers, query steps, loss chunks (training)
     unroll: bool = False  # accepted; the port's loops are Python loops
     # GQA kv heads expanded to full heads before attention (train/prefill)
     expand_kv: bool = False
@@ -204,8 +212,32 @@ class Transformer(nn.Module):
         self.register_buffer("rope_freqs", rope_freqs(cfg.d_head, cfg.rope_theta).to(dev))
 
     def layer_params(self, i: int) -> dict:
-        """Layer ``i``'s slice of every stacked leaf."""
-        return {k: p[i] for k, p in self.layers.named_parameters()}
+        """Layer ``i``'s slice of every stacked leaf (:class:`_LayerSlice`)."""
+        names, leaves = zip(*self.layers.named_parameters())
+        return dict(zip(names, _LayerSlice.apply(i, *leaves)))
+
+
+class _LayerSlice(torch.autograd.Function):
+    """Row ``i`` of each stacked leaf. Its backward adds each row's gradient
+    into row ``i`` of the leaf's ``.grad`` (zeros, allocated once): autograd's
+    select-backward would build a zero tensor of the whole leaf for every
+    layer and sum them, ~3 passes over the leaves per layer (2.4 % of a
+    minicpm-2b train step, PERF.md §6). The values are those sums' (a row's
+    gradient plus zeros)."""
+
+    @staticmethod
+    def forward(ctx, i, *leaves):
+        ctx.i, ctx.leaves = i, leaves
+        return tuple(p[i] for p in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        for p, g in zip(ctx.leaves, grads):
+            if g is not None:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                p.grad[ctx.i] += g
+        return (None,) * (1 + len(grads))
 
 
 # ---------------------------------------------------------------- layers
@@ -225,6 +257,36 @@ def _matmul(a, b):
     return torch.matmul(a, b)
 
 
+def _recording(*xs) -> bool:
+    """Whether autograd records an op on ``xs`` (a training step)."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _bmm_f32(a, b):
+    """cuBLAS's bf16 GEMM with float32 output over operands of equal batch shape."""
+    batch = a.shape[:-2]
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                    out_dtype=torch.float32)
+    return out.reshape(*batch, *out.shape[-2:])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_bmm_f32` where autograd records (its ``out_dtype`` form has no
+    derivative): each operand's gradient is a GEMM of the float32 cotangent
+    rounded to the operands' dtype, in that dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return torch.matmul(g, b.mT), torch.matmul(a.mT, g)
+
+
 def _matmul_f32(a, b):
     """``a @ b`` with ``preferred_element_type=float32``: the operands in their
     common dtype, float32 products and sums, a float32 result. Batched
@@ -235,10 +297,7 @@ def _matmul_f32(a, b):
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.is_cuda:
-        batch = a.shape[:-2]
-        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
-                        out_dtype=torch.float32)
-        return out.reshape(*batch, *out.shape[-2:])
+        return _MatmulF32.apply(a, b) if _recording(a, b) else _bmm_f32(a, b)
     return torch.matmul(a.float(), b.float())
 
 
@@ -246,6 +305,31 @@ def _softmax_(s: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax(s, -1)`` in place: exp(s - max) / sum."""
     s.sub_(s.amax(-1, keepdim=True)).exp_()
     return s.div_(s.sum(-1, keepdim=True))
+
+
+class _CausalSoftmax(torch.autograd.Function):
+    """``softmax(where(ok, s * scale, -1e30))`` over the last axis, on a new
+    tensor (the same operations as the in-place path, so the same values),
+    saving only the probabilities ``p``. Backward: ``scale * p * (g - sum(g *
+    p))``, the reference's softmax jvp transposed; a masked entry's ``p`` is
+    0, so its gradient is too. ``s`` [B, Hk, G*n, S]; ``ok`` [n, S]."""
+
+    @staticmethod
+    def forward(ctx, s, ok, scale, G):
+        B, Hk, _, S = s.shape
+        p = s.mul(scale)
+        p.view(B, Hk, G, -1, S).masked_fill_(~ok, -1e30)
+        ctx.scale = scale
+        p = _softmax_(p)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        gs = g * p
+        gs.addcmul_(p, gs.sum(-1, keepdim=True), value=-1.0)
+        return gs.mul_(ctx.scale), None, None, None
 
 
 def rmsnorm(x, scale, eps):
@@ -271,7 +355,7 @@ def _activate(h, act):
     if act in ("swiglu", "geglu"):
         g, u = torch.chunk(h, 2, dim=-1)
         gate = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
-        return gate.mul_(u)
+        return gate * u if _recording(gate, u) else gate.mul_(u)
     return F.gelu(h, approximate="tanh")
 
 
@@ -282,10 +366,15 @@ def _attend(q, kT, vh, qpos, G: int):
     B, n, Hq, D = q.shape
     Hk, S = kT.shape[1], kT.shape[3]
     qh = q.reshape(B, n, Hk, G, D).permute(0, 2, 3, 1, 4).reshape(B, Hk, G * n, D)
-    s = _matmul_f32(qh, kT).mul_(1.0 / np.sqrt(D))  # [B, Hk, G*n, S]
+    s = _matmul_f32(qh, kT)  # [B, Hk, G*n, S]
     ok = qpos[:, None] >= torch.arange(S, device=q.device)[None, :]  # causal [n, S]
-    s.view(B, Hk, G, n, S).masked_fill_(~ok, -1e30)
-    p = _softmax_(s).to(vh.dtype)
+    scale = 1.0 / np.sqrt(D)
+    if _recording(s):
+        p = _CausalSoftmax.apply(s, ok, scale, G)
+    else:
+        s.mul_(scale).view(B, Hk, G, n, S).masked_fill_(~ok, -1e30)
+        p = _softmax_(s)
+    p = p.to(vh.dtype)
     o = _matmul_f32(p, vh)  # [B, Hk, G*n, D]
     return o.reshape(B, Hk, G, n, D).permute(0, 3, 1, 2, 4).reshape(B, n, Hq, D).to(q.dtype)
 
@@ -299,6 +388,8 @@ def attention(q, k, v, cfg: TransformerConfig):
     loop; each step's [B, Hk, G, par * c, S] float32 block of scores is the
     only attention transient. Where ``attn_chunk`` does not divide S the
     remainder runs as one short last chunk (see the module docstring).
+    Where autograd records and ``cfg.remat`` is set, each step is
+    checkpointed (the reference's per-step ``jax.checkpoint``).
     """
     B, S, Hq, D = q.shape
     Hk = k.shape[2]
@@ -315,13 +406,17 @@ def attention(q, k, v, cfg: TransformerConfig):
     dev = q.device
     main = q[:, : nq * c].reshape(B, par, n_outer, c, Hq, D)
     rows = (torch.arange(par, device=dev)[:, None] * n_outer) * c + torch.arange(c, device=dev)
+    if cfg.remat and _recording(q, k, v):
+        step = lambda *args: checkpoint(_attend, *args, use_reentrant=False)
+    else:
+        step = _attend
     for i in range(n_outer):
         qpos = (rows + i * c).reshape(-1)  # [par * c]
         qi = main[:, :, i].reshape(B, par * c, Hq, D)
-        out[:, qpos] = _attend(qi, kT, vh, qpos, G)
+        out[:, qpos] = step(qi, kT, vh, qpos, G)
     if S % c:  # ragged tail: one short chunk
         qpos = torch.arange(nq * c, S, device=dev)
-        out[:, nq * c:] = _attend(q[:, nq * c:], kT, vh, qpos, G)
+        out[:, nq * c:] = step(q[:, nq * c:], kT, vh, qpos, G)
     return out
 
 
@@ -344,7 +439,9 @@ def _moe_ffn(x, router_w, w1, w2, cfg: TransformerConfig):
     xg = constrain(x.reshape(G, Tl, d), "dp", None, None)
     logits = torch.matmul(xg.float(), router_w)  # [G, Tl, E]
     probs = torch.softmax(logits, dim=-1)
-    gate, eid = torch.topk(probs, k, dim=-1)  # [G, Tl, k]
+    # jax.lax.top_k: among equal probabilities the lower expert first
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eid = ranked[..., :k], order[..., :k]  # [G, Tl, k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     eid_f = eid.reshape(G, Tl * k)
     gate_f = gate.reshape(G, Tl * k)
@@ -433,29 +530,76 @@ def _embed(model: Transformer, tokens):
     return x
 
 
+def _layer_out(x, lp, cfg: TransformerConfig, positions, freqs):
+    return _layer(x, lp, cfg, positions, freqs)[0]
+
+
 def _run_layers(model: Transformer, x, positions, cfg: TransformerConfig, cache=None):
-    """Every layer in order; with ``cache``, layer i's k/v are written into
+    """Every layer in order, each checkpointed where autograd records and
+    ``cfg.remat`` is set; with ``cache``, layer i's k/v are written into
     ``cache["k"][i, :, :S]`` (in the cache's dtype)."""
     S = x.shape[1]
     for i in range(cfg.n_layers):
-        x, kk, vv = _layer(x, model.layer_params(i), cfg, positions, model.rope_freqs)
+        lp = model.layer_params(i)
+        if cfg.remat and _recording(x, *lp.values()):
+            x = checkpoint(_layer_out, x, lp, cfg, positions, model.rope_freqs,
+                           use_reentrant=False)
+        else:
+            x, kk, vv = _layer(x, lp, cfg, positions, model.rope_freqs)
+            if cache is not None:
+                cache["k"][i, :, :S] = kk
+                cache["v"][i, :, :S] = vv
+            del kk, vv
         x = constrain(x, "dp", "model_seq", "model_d")
-        if cache is not None:
-            cache["k"][i, :, :S] = kk
-            cache["v"][i, :, :S] = vv
-        del kk, vv
     return x
 
 
 def backbone(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None):
-    """tokens [B, S] -> final hidden [B, S, d]. Autograd records it unless
-    the caller turns it off (``torch.no_grad()``), as a server does."""
+    """tokens [B, S] -> final hidden [B, S, d]. Differentiable: the softmax,
+    mask and GLU product work out of place where autograd records, and the
+    layers and attention steps are checkpointed under ``cfg.remat``; under
+    ``torch.no_grad()`` (a server) they work in place and nothing is kept."""
     cfg = cfg or model.cfg
     S = tokens.shape[1]
     x = constrain(_embed(model, tokens), "dp", "model_seq", "model_d")
     positions = torch.arange(S, device=x.device)[None, :]
     x = _run_layers(model, x, positions, cfg)
     return rmsnorm(x, model.ln_f, cfg.norm_eps)
+
+
+def _chunk_nll(lm_head, h, labels, mask, cfg: TransformerConfig):
+    """The summed next-token NLL of one chunk of positions: float32 logits
+    (soft-capped), ``logsumexp - gold`` where ``mask``."""
+    logits = _matmul(h, lm_head).float()
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.where(mask, torch.logsumexp(logits, -1) - gold, 0.0).sum()
+
+
+def loss_fn(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None):
+    """Next-token cross entropy of ``tokens`` [B, S] (the reference's
+    ``loss_fn``): the labels are the tokens shifted left with the first
+    moved to the end, the last position masked out; the head runs in chunks
+    of ``loss_chunk`` positions (each checkpointed where autograd records
+    and ``cfg.remat`` is set: one [B, loss_chunk, V] float32 block of logits
+    at a time); the chunks' sum over the unmasked count."""
+    cfg = cfg or model.cfg
+    B, S = tokens.shape
+    c = min(cfg.loss_chunk, S)
+    if S % c:
+        raise ValueError(f"loss_chunk {c} does not divide the sequence length {S}")
+    h = backbone(model, tokens, cfg)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(B, S, dtype=torch.bool, device=tokens.device)
+    mask[:, -1] = False
+    remat = cfg.remat and _recording(h, model.lm_head)
+    nlls = []
+    for j in range(0, S, c):
+        args = (model.lm_head, h[:, j:j + c], labels[:, j:j + c], mask[:, j:j + c], cfg)
+        nlls.append(checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
+                    else _chunk_nll(*args))
+    return torch.stack(nlls).sum() / torch.clamp(mask.sum(), min=1)
 
 
 def lm_logits(model: Transformer, h, cfg: Optional[TransformerConfig] = None, softcap=True):

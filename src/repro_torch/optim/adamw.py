@@ -9,6 +9,13 @@
   to every parameter;
 * ``step`` returns the norm before clipping.
 
+``step`` walks each parameter in slices of its leading axis of at most
+``SLICE_ELEMS`` elements, clipping and updating one slice at a time: the
+update is elementwise, so the result is bit-equal to one pass over the
+whole leaf, and its float32 temporaries stay a few slices in size (a
+stacked [40, 2304, 11520] leaf is 4.25 GB a float32 copy). The gradients
+in ``.grad`` are left as they are.
+
 ``torch.optim.AdamW`` and ``clip_grad_norm_`` are not used: their epsilon
 placement and order of operations differ. The state per parameter is
 ``{"m", "v"}`` plus one ``count`` (``AdamW.count``);
@@ -23,6 +30,9 @@ from typing import Any
 import torch
 
 from repro_torch.models.param import ArraySpec
+
+#: the most elements of a leaf that ``AdamW.step`` updates at once
+SLICE_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,14 +70,41 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
+    """float32 sum of ``g``'s squares, with one float32 copy of ``g`` at most."""
+    if g.dtype == torch.float32:
+        return torch.sum(torch.square(g))
+    return torch.sum(g.float().square_())
+
+
+def _global_norm(grads: list) -> torch.Tensor:
+    """The sqrt of the sum, over the gradients in order, of each one's
+    float32 sum of squares."""
+    sq = sum(_sum_of_squares(g) for g in grads)
+    return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads: list, max_norm: float):
-    """(clipped gradients, norm before clipping): the norm is the sqrt of
-    the sum, over the gradients in order, of each one's float32 sum of
-    squares."""
-    sq = sum(torch.sum(torch.square(g.float())) for g in grads)
-    norm = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    """(clipped gradients, norm before clipping), the norm as
+    :func:`_global_norm`."""
+    norm = _global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
     return [(g * scale).to(g.dtype) for g in grads], norm
+
+
+def _row_slices(p: torch.Tensor):
+    """Index expressions that walk ``p`` in slices of its leading axis of at
+    most ``SLICE_ELEMS`` elements (one row at least; a 0-d ``p`` whole)."""
+    if p.dim() == 0:
+        yield ...
+        return
+    rows = max(1, SLICE_ELEMS // max(1, p[0].numel()))
+    for i in range(0, p.shape[0], rows):
+        yield slice(i, i + rows)
 
 
 class AdamW(torch.optim.Optimizer):
@@ -90,9 +127,11 @@ class AdamW(torch.optim.Optimizer):
         lr = self.param_groups[0]["lr"] if lr is None else lr
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if cfg.grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+            gnorm = _global_norm(grads)
+            scale = _clip_scale(gnorm, cfg.grad_clip)
         else:
             gnorm = torch.zeros((), dtype=torch.float32, device=self.count.device)
+            scale = None
         self.count += 1
         count = self.count.float()
         b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=count.device), count)
@@ -102,11 +141,19 @@ class AdamW(torch.optim.Optimizer):
             if "m" not in st:
                 st["m"] = torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
                 st["v"] = torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
-            g32, m32, v32, p32 = g.float(), st["m"].float(), st["v"].float(), p.float()
-            m_new = cfg.b1 * m32 + (1 - cfg.b1) * g32
-            v_new = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
-            upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
-            p.copy_((p32 - lr * (upd + cfg.weight_decay * p32)).to(p.dtype))
-            st["m"] = m_new.to(cfg.moment_dtype)
-            st["v"] = v_new.to(cfg.moment_dtype)
+            for sl in _row_slices(p):
+                self._update(p[sl], g[sl], st["m"][sl], st["v"][sl], scale, lr, b1c, b2c)
         return gnorm
+
+    def _update(self, p, g, m, v, scale, lr, b1c, b2c):
+        """One slice: the clipped gradient, the moments and the parameter, in place."""
+        cfg = self.cfg
+        if scale is not None:
+            g = (g * scale).to(g.dtype)
+        g32, m32, v32, p32 = g.float(), m.float(), v.float(), p.float()
+        m_new = cfg.b1 * m32 + (1 - cfg.b1) * g32
+        v_new = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
+        upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
+        p.copy_((p32 - lr * (upd + cfg.weight_decay * p32)).to(p.dtype))
+        m.copy_(m_new)
+        v.copy_(v_new)

@@ -11,8 +11,11 @@ snapshots with the execution guard around the epoch executor; one train
 step of each GNN on the card against the same step on the CPU; and the
 serving paths: the five LMs (prefill, decode) and BERT4Rec (serve,
 retrieval) at their smoke configs on the card against the CPU, a card
-build against a CPU build from one seed, and draws from a CUDA generator.
-They skip without a CUDA device; on a machine with an NVIDIA card run
+build against a CPU build from one seed, and draws from a CUDA generator;
+the training paths: one train step of each LM (float32, and minicpm-2b in
+bfloat16 through the bf16 GEMM's backward) and of BERT4Rec on the card
+against the CPU, the top-k and MoE routing ties on the card, and the
+sliced AdamW step bit-equal to one pass over each leaf. They skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -919,3 +922,176 @@ def test_matmul_f32_of_bfloat16_on_card(cuda, layout):
     # layout fault would be off by O(1))
     K = a.shape[-1]
     assert _rel_err(got, want) <= K * 2.0**-24, (_rel_err(got, want), K)
+
+
+def _train_on_both(model_cpu, step_for, batch, lr, card_device):
+    """One train step of ``model_cpu`` and of its copy on the card (their own
+    AdamW at ``lr``): {"cpu" / "cuda": (output, model)}."""
+    import copy
+
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    out = {}
+    card = copy.deepcopy(model_cpu).to(card_device)
+    for name, model in (("cpu", model_cpu), ("cuda", card)):
+        dev = next(model.parameters()).device
+        opt = AdamW(model.parameters(), AdamWConfig(lr=lr))
+        out[name] = (step_for(dev)(model, opt, batch), model)
+    return out
+
+
+def _assert_train_held(out, lr, loss_rtol=1e-4, grad_rel=1e-3):
+    """Loss within ``loss_rtol``; each gradient within ``grad_rel`` of
+    max(its largest magnitude, 1e-3) (``grad_errors``); each parameter after
+    the step within 2 * lr of the CPU's (the first update is about lr *
+    sign(g): a gradient that is rounding noise may take the other sign)."""
+    from repro_torch.testing.gnn_check import grad_errors
+
+    (got, card), (want, host) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=loss_rtol)
+    np.testing.assert_allclose(float(got["grad_norm"]), float(want["grad_norm"]), rtol=10 * loss_rtol)
+    grads = {n: p.grad.detach().cpu() for n, p in host.named_parameters()}
+    errs = grad_errors(card, grads)
+    assert max(errs.values()) <= grad_rel, errs
+    for (name, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
+        b = b.detach().float()
+        diff = (a.detach().float().cpu() - b).abs()
+        # and one rounding of the parameter's dtype (an ulp of bf16 at |p|)
+        bound = 2 * lr * (1 + 1e-3) + 1e-6 + torch.finfo(a.dtype).eps * b.abs()
+        assert (diff <= bound).all(), (name, float(diff.max()))
+
+
+@pytest.mark.parametrize("arch_id", LM_IDS + ["minicpm-2b-bf16"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch_id):
+    """One ``make_lm_train_step`` step of each LM at its smoke config, float32
+    (bfloat16 for ``minicpm-2b-bf16``: the card's bf16 GEMM with float32
+    output and its backward, against the CPU's float32 products of the same
+    bf16 values, held at bf16's 5e-2), from the same weights, with two
+    router columns tied in the MoE archs (the routing ties break alike)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, registry
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    bf16 = arch_id.endswith("-bf16")
+    arch = get_arch(arch_id.removesuffix("-bf16"))
+    cfg = dataclasses.replace(arch.smoke_config,
+                              param_dtype=torch.bfloat16 if bf16 else torch.float32)
+    arch = dataclasses.replace(arch, config=cfg)
+    shape = registry.ShapeSpec("small", "train", seq_len=64, global_batch=2)
+    host = tfm.Transformer(cfg, device="cpu", seed=0)
+    if cfg.is_moe:
+        with torch.no_grad():
+            host.layers.router[..., 1] = host.layers.router[..., 0]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)).astype(np.int32))
+    lr = 1e-3
+    out = _train_on_both(host, lambda dev: steps.make_lm_train_step(
+        arch, shape, steps.AdamWConfig(lr=lr), device=dev), {"tokens": tokens}, lr, cuda)
+    assert out["cuda"][0]["loss"].device.type == cuda.type
+    if bf16:
+        _assert_train_held(out, lr, loss_rtol=1e-2, grad_rel=5e-2)
+    else:
+        _assert_train_held(out, lr)
+
+
+def test_bert4rec_train_step_on_card_matches_cpu(cuda):
+    """One ``make_recsys_step`` train step of BERT4Rec at its smoke config on
+    the card against the CPU, from the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, registry
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import bert4rec as b4r
+
+    arch = get_arch("bert4rec")
+    cfg = arch.smoke_config
+    arch = dataclasses.replace(arch, config=cfg)
+    shape = registry.ShapeSpec("small", "train", batch=8)
+    host = b4r.Bert4Rec(cfg, device="cpu", seed=0)
+    batch = RecsysPipeline(cfg.item_vocab, 8, cfg.seq_len, cfg.n_mask, cfg.n_negatives,
+                           cfg.n_context, seed=1, device="cpu").batch_at(0)
+    lr = 1e-3
+    out = _train_on_both(host, lambda dev: steps.make_recsys_step(
+        arch, shape, steps.AdamWConfig(lr=lr), device=dev), batch, lr, cuda)
+    assert out["cuda"][0]["loss"].device.type == cuda.type
+    _assert_train_held(out, lr)
+
+
+@pytest.mark.parametrize("k,shards", [(10, 4), (100, 16)])
+def test_sharded_topk_ties_on_card(cuda, k, shards):
+    """Scores from three levels (ties straddle the k-th place in every slice):
+    the card's values and indices equal the CPU's (which the CPU tests hold
+    to ``jax.lax.top_k``)."""
+    from repro_torch.launch.steps import sharded_topk
+
+    scores = torch.from_numpy(np.random.default_rng(k).integers(0, 3, (64, 65536)).astype(np.float32))
+    want = sharded_topk(scores, k, shards)
+    got = sharded_topk(scores.to(cuda), k, shards)
+    assert got[1].device.type == cuda.type
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_moe_router_ties_on_card(cuda):
+    """``_moe_ffn`` with three tied router columns (E 8, top 3, 2 groups,
+    capacity 1.0: pairs dropped) on the card against the CPU: the same
+    choices, so the outputs agree to float32 rounding."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").smoke_config, n_experts=8,
+                              top_k=3, moe_groups=2, capacity_factor=1.0,
+                              param_dtype=torch.float32)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(128, cfg.d_model, generator=g)
+    router = torch.randn(cfg.d_model, 8, generator=g)
+    router[:, 1] = router[:, 0]
+    router[:, 2] = router[:, 0]
+    w1 = torch.randn(8, cfg.d_model, 2 * cfg.d_ff, generator=g) * 0.1
+    w2 = torch.randn(8, cfg.d_ff, cfg.d_model, generator=g) * 0.1
+    want = tfm._moe_ffn(x, router, w1, w2, cfg)
+    got = tfm._moe_ffn(*(t.to(cuda) for t in (x, router, w1, w2)), cfg)
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_adamw_is_bit_equal_on_card(cuda, monkeypatch, dtype):
+    """``AdamW.step`` walking slices of 7 elements against one pass over each
+    leaf (the step before slicing), on the card: parameters, moments and the
+    norm bit-equal over three steps, clipping active."""
+    from repro_torch.optim import AdamW, AdamWConfig, adamw
+
+    monkeypatch.setattr(adamw, "SLICE_ELEMS", 7)
+    cfg = AdamWConfig(lr=1e-2, grad_clip=0.5)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shapes = [(5, 4, 3), (9, 2), (13,), (40, 8)]
+    ours = [torch.nn.Parameter(torch.randn(s, generator=g, device=cuda).to(dtype)) for s in shapes]
+    opt = AdamW(ours, cfg)
+    ref = [p.detach().clone() for p in ours]
+    m = [torch.zeros(s, device=cuda) for s in shapes]
+    v = [torch.zeros(s, device=cuda) for s in shapes]
+    for step in range(1, 4):
+        grads = [(torch.randn(s, generator=g, device=cuda) * 3).to(dtype) for s in shapes]
+        for p, gr in zip(ours, grads):
+            p.grad = gr.clone()
+        norm = opt.step()
+        sq = sum(torch.sum(torch.square(gr.float())) for gr in grads)
+        want = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(want, min=1e-9), max=1.0)
+        count = torch.tensor(float(step), device=cuda)
+        b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=cuda), count)
+        b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=cuda), count)
+        for i, gr in enumerate(grads):
+            g32, p32 = (gr * scale).to(dtype).float(), ref[i].float()
+            m[i] = cfg.b1 * m[i] + (1 - cfg.b1) * g32
+            v[i] = cfg.b2 * v[i] + (1 - cfg.b2) * g32 * g32
+            upd = (m[i] / b1c) / (torch.sqrt(v[i] / b2c) + cfg.eps)
+            ref[i] = (p32 - cfg.lr * (upd + cfg.weight_decay * p32)).to(dtype)
+        assert torch.equal(norm, want)
+        for i, p in enumerate(ours):
+            assert torch.equal(p.detach(), ref[i]) and torch.equal(p.grad, grads[i])
+            assert torch.equal(opt.state[p]["m"], m[i]) and torch.equal(opt.state[p]["v"], v[i])

@@ -1,8 +1,9 @@
 """Port parity of the optimizer (``repro_torch.optim``): AdamW over three
 steps on identical gradients, with clipping active and inactive, against
 ``repro.optim.adamw_update``; the state layout carried to and from the
-reference's ``{m, v, count}``; the LR schedules at their phase
-boundaries; int8 compression, values on .5 included (both round half to
+reference's ``{m, v, count}``; the step's walk in slices of each leaf's
+leading axis, bit-equal to one pass over the leaf; the LR schedules at
+their phase boundaries; int8 compression, values on .5 included (both round half to
 even), and error feedback.
 
 Tolerances: parameters, moments and norms rtol 1e-4, atol 1e-6 (float32
@@ -21,6 +22,7 @@ from repro_torch import convert, optim
 from repro_torch.models import gin as tgin
 from repro_torch.models.gin import GIN, GINConfig
 from repro_torch.models.param import ArraySpec
+from repro_torch.optim import adamw
 
 STATE = dict(rtol=1e-4, atol=1e-6)
 
@@ -217,3 +219,59 @@ def test_error_feedback_matches_reference():
         total += optim.decompress_int8(q, scale, shape).numpy()
     # the running sum of what was sent stays within one residual of the truth
     np.testing.assert_allclose(total + res.numpy(), np.sum(grads, axis=0), atol=1e-4)
+
+
+def one_pass_step(params, state, count, lr, cfg):
+    """``AdamW.step`` as one pass over each whole leaf (the port's step
+    before it walked slices): clipped copies of every gradient, then each
+    leaf's update. Returns the norm; updates ``params`` and ``state``."""
+    grads = [p.grad for p in params]
+    if cfg.grad_clip:
+        sq = sum(torch.sum(torch.square(g.float())) for g in grads)
+        gnorm = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        grads = [(g * scale).to(g.dtype) for g in grads]
+    else:
+        gnorm = torch.zeros((), dtype=torch.float32)
+    b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), count)
+    b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), count)
+    with torch.no_grad():
+        for p, g, st in zip(params, grads, state):
+            g32, m32, v32, p32 = g.float(), st["m"].float(), st["v"].float(), p.float()
+            m_new = cfg.b1 * m32 + (1 - cfg.b1) * g32
+            v_new = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
+            upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
+            p.copy_((p32 - lr * (upd + cfg.weight_decay * p32)).to(p.dtype))
+            st["m"] = m_new.to(cfg.moment_dtype)
+            st["v"] = v_new.to(cfg.moment_dtype)
+    return gnorm
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip", [0.5, 0.0], ids=["clip", "no_clip"])
+def test_sliced_step_is_bit_equal_to_one_pass(monkeypatch, dtype, moments, clip):
+    """Stacked leaves walked a few rows at a time (``SLICE_ELEMS`` 7: slices
+    of one row, of several, a 1-d leaf in pieces) give the same bits as one
+    pass over each leaf: parameters, moments and the norm, over three
+    steps; the gradients in ``.grad`` are not changed."""
+    monkeypatch.setattr(adamw, "SLICE_ELEMS", 7)
+    cfg = optim.AdamWConfig(lr=1e-2, grad_clip=clip, moment_dtype=moments)
+    g = torch.Generator().manual_seed(3)
+    shapes = [(5, 4, 3), (9, 2), (13,), (3, 8)]
+    ours = [torch.nn.Parameter(torch.randn(s, generator=g).to(dtype)) for s in shapes]
+    ref = [torch.nn.Parameter(p.detach().clone()) for p in ours]
+    opt = optim.AdamW(ours, cfg)
+    state = [{"m": torch.zeros(s, dtype=moments), "v": torch.zeros(s, dtype=moments)}
+             for s in shapes]
+    for step in range(1, 4):
+        for a, b in zip(ours, ref):
+            a.grad = (torch.randn(a.shape, generator=g) * 3).to(dtype)
+            b.grad = a.grad.clone()
+        norm = opt.step()
+        want = one_pass_step(ref, state, torch.tensor(float(step)), cfg.lr, cfg)
+        assert torch.equal(norm, want)
+        for a, b, st in zip(ours, ref, state):
+            assert torch.equal(a, b) and torch.equal(a.grad, b.grad)
+            assert torch.equal(opt.state[a]["m"], st["m"])
+            assert torch.equal(opt.state[a]["v"], st["v"])

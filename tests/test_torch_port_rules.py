@@ -27,7 +27,7 @@ from repro_torch.configs import get_arch
 from repro_torch.data import RecsysPipeline, TokenPipeline, make_gnn_batch
 from repro_torch.distributed import build_mesh, constrain, plan_remesh, sharding_rules
 from repro_torch.graph import coarsen_by_matching
-from repro_torch.launch import gnn_train, serve_recsys, steps
+from repro_torch.launch import gnn_train, serve_recsys, steps, train_lm
 from repro_torch.models import bert4rec, egnn, equiformer_v2, gin, meshgraphnet, transformer
 from repro_torch.optim import AdamWConfig
 from repro_torch.kernels.substream_match import kernel
@@ -170,6 +170,11 @@ SLICE_ENTRIES = {
     "make_recsys_step_retrieval": lambda s, c: steps.make_recsys_step(
         get_arch("bert4rec"), get_arch("bert4rec").shapes["retrieval_cand"]),
     "serve_recsys_main": lambda s, c: serve_recsys.main([]),
+    "make_lm_train_step": lambda s, c: steps.make_lm_train_step(
+        get_arch("minicpm-2b"), get_arch("minicpm-2b").shapes["train_4k"], AdamWConfig()),
+    "make_recsys_step_train": lambda s, c: steps.make_recsys_step(
+        get_arch("bert4rec"), get_arch("bert4rec").shapes["train_batch"], AdamWConfig()),
+    "train_lm_main": lambda s, c: train_lm.main(["--steps", "1"]),
 }
 
 
@@ -177,7 +182,8 @@ SLICE_ENTRIES = {
 def test_rounds_gseq_and_substrate_default_to_the_card(monkeypatch, entry):
     """The rounds engines, G-SEQ, ``substream_matchings``, coarsening, the
     mesh, the GNN models, batches, train step and trainer, the pipelines,
-    the LM and BERT4Rec models, their serving steps and the recsys server:
+    the LM and BERT4Rec models, their train and serving steps, the LM
+    trainer and the recsys server:
     ``device=None`` (for the sharded rounds, a mesh on the card) raises
     without a card, before any work."""
     stream, cfg = _cpu_stream(), SubstreamConfig(n=3, L=8)

@@ -13,10 +13,11 @@ hidden states (layer-normed, |h| ~ 1) and atol 1e-6 on the scores (|s| ~
 0.1: item rows are drawn at scale 0.02); the EmbeddingBag's sums rtol
 1e-6, atol 1e-6. The serving steps run at an item vocabulary of 4,096:
 the reference's top 100 over 16 shards needs 100 items a shard, more than
-the smoke config's 1,024 items hold. Top-k:
-values exact where the scores are (``sharded_topk`` on one score array);
-indices up to ties, i.e. the scores at the returned indices are equal (the
-retrieval candidates are drawn with replacement, so duplicate items tie).
+the smoke config's 1,024 items hold. Top-k
+(``sharded_topk`` on one score array): values and indices exact, ties
+broken toward the lower index as ``jax.lax.top_k`` breaks them, also where
+equal values straddle the k-th place (the retrieval candidates are drawn
+with replacement, so duplicate items tie).
 """
 import dataclasses
 import functools
@@ -190,12 +191,12 @@ def test_bert4rec_matches_reference(fn):
 
 
 def _assert_topk(got, want, scores):
-    """Values equal; indices equal up to ties: the scores at the returned
-    indices are the values."""
+    """Values and indices equal (ties to the lower index, as the
+    reference's), and the scores at the returned indices are the values."""
     (gv, gi), (wv, wi) = [tuple(np.asarray(a) for a in x) for x in (got, want)]
     np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_array_equal(gi, wi)
     np.testing.assert_array_equal(np.take_along_axis(scores, gi.astype(np.int64), 1), gv)
-    np.testing.assert_array_equal(np.take_along_axis(scores, wi.astype(np.int64), 1), wv)
     assert all(len(set(row)) == len(row) for row in gi.tolist())
 
 
@@ -209,6 +210,33 @@ def test_sharded_topk_matches_reference(k, shards, ties):
     want = jsteps.sharded_topk(scores, k, shards)
     got = steps.sharded_topk(_t(scores), k, shards)
     _assert_topk(got, want, scores)
+
+
+@pytest.mark.parametrize("levels", [2, 5])
+@pytest.mark.parametrize("k,shards", [(10, 4), (100, 16), (10, 16), (100, 4)])
+def test_sharded_topk_breaks_ties_as_the_reference(k, shards, levels):
+    """Fault A: scores from a few levels, so equal values straddle the k-th
+    place in every slice and in the merge; ``torch.topk`` alone returned
+    other indices. The port's indices are the reference's exactly."""
+    rng = np.random.default_rng(k * shards + levels)
+    scores = rng.integers(0, levels, (4, 4096)).astype(np.float32)
+    scores[1, ::7] = levels  # a row whose top level holds more than k entries
+    want = jsteps.sharded_topk(scores, k, shards)
+    got = steps.sharded_topk(_t(scores), k, shards)
+    _assert_topk(got, want, scores)
+
+
+@pytest.mark.parametrize("k", [1, 3, 10, 64])
+def test_topk_lower_index_is_lax_top_k(k):
+    """One stage on its own, rows of a few levels and of distinct values, a
+    batch of leading axes."""
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 3, (2, 3, 64)).astype(np.float32)
+    x[1, 2] = rng.permutation(64).astype(np.float32)
+    wv, wi = jax.lax.top_k(x, k)
+    gv, gi = steps.topk_lower_index(_t(x), k)
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
 
 
 def _small(kind, **kw):
@@ -253,7 +281,7 @@ def test_retrieval_step_matches_reference():
     with torch.no_grad():
         scores = b4r.score_candidates(model, *(_t(batch[k]) for k in
                                                ("item_ids", "context_ids", "candidates")))
-    _assert_topk(got, steps.sharded_topk(scores, 100), scores.numpy())
+    _assert_topk(got, jsteps.sharded_topk(scores.numpy(), 100), scores.numpy())
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **FWD)
     assert len(set(cands.tolist())) < len(cands)  # ties exist
 
@@ -266,12 +294,6 @@ def test_recsys_input_specs_match_reference(shape_name):
     got = {k: spec(v) for k, v in steps.recsys_input_specs(arch, arch.shapes[shape_name]).items()}
     want = {k: spec(v) for k, v in jsteps.recsys_input_specs(ref, ref.shapes[shape_name]).items()}
     assert got == want
-
-
-def test_recsys_train_step_is_not_ported():
-    arch = get_arch("bert4rec")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        steps.make_recsys_step(arch, arch.shapes["train_batch"], device="cpu")
 
 
 def test_pipeline_batch_matches_reference():
