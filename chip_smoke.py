@@ -76,7 +76,16 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   ``make_recsys_step`` train steps, one step of 64 users held to the CPU.
   The serving and training phases launch none of the six kernels
   (attention, MoE dispatch, the losses and AdamW are plain PyTorch, as they
-  are plain XLA in the reference).
+  are plain XLA in the reference);
+* sharded execution (after the training phases): gemma-7b at its
+  published width cut to 2 layers, float32, 5 ``make_lm_train_step`` steps
+  on a 1x1 NCCL mesh with every parameter a DTensor under the JAX
+  package's multi-device test's rules, then the same steps without a
+  mesh: losses equal, ms a step and peak of each (a larger world needs a
+  card per rank; the multi-rank checks are the CPU tests);
+* the two matching examples at their defaults (``launch/quickstart.py``,
+  ``launch/matching_e2e.py``): the packed per-edge kernel counted in each,
+  the exact MWM ratio at most 4 + eps.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -165,6 +174,20 @@ RECSYS_HELD_USERS = 64
 #: card against the CPU (error over the largest magnitude)
 RECSYS_P99_BATCHES = 20
 RECSYS_RTOL = 1e-5
+#: sharded LM training: gemma-7b at its published width cut to 2 of its 28
+#: layers (float32 weights and AdamW state of 28 layers are ~136 GB), float32,
+#: under the rules of the JAX package's multi-device test on a 1x1 NCCL mesh,
+#: sequences x tokens a step, steps, the rate, and the sharded run's losses
+#: against the same steps without a mesh (relative)
+SHARDED_ARCH = "gemma-7b"
+SHARDED_LAYERS = 2
+SHARDED_BATCH = 4
+SHARDED_TOKENS = 1024
+SHARDED_STEPS = 5
+SHARDED_LR = 1e-3
+SHARDED_RULES = {"dp": ("data",), "embed": None, "heads": "model", "kv_heads": "model",
+                 "mlp": "model", "vocab": "model", "layers": None, "model_seq": None}
+SHARDED_LOSS_RTOL = 1e-5
 
 
 def emit(phase, **fields):
@@ -2561,6 +2584,151 @@ def phase_recsys_train():
         raise AssertionError(f"recsys_train: launches {launches}, finite {finite}: {steps}")
 
 
+def _sharded_lm_run(arch, shape, tokens, mesh):
+    """SHARDED_STEPS ``make_lm_train_step`` steps (AdamW at SHARDED_LR) of the
+    arch's model drawn on the card from seed 0, on ``tokens`` each step,
+    under SHARDED_RULES: with ``mesh``, every parameter a DTensor on it and
+    the mesh current; with None, the plain model (rules without a mesh
+    place nothing). Each step timed with CUDA events; frees the model."""
+    import torch
+
+    from repro_torch.distributed import sharding_rules, use_mesh
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import distribute_params
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    torch.cuda.empty_cache()
+    cfg = arch.config
+    model = tfm.Transformer(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    placed = None
+    if mesh is not None:
+        distribute_params(model, tfm.param_specs(cfg), SHARDED_RULES, mesh)
+        placed = {n: str(tuple(p.placements)) for n, p in model.named_parameters()}
+    opt_cfg = AdamWConfig(lr=SHARDED_LR)
+    opt = AdamW(model.parameters(), opt_cfg)
+    step = make_lm_train_step(arch, shape, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with sharding_rules(SHARDED_RULES), use_mesh(mesh):
+        for _ in range(SHARDED_STEPS):
+            ms, out = cuda_ms(lambda: step(model, opt, {"tokens": tokens}))
+            steps.append({"ms": ms, "loss": float(out["loss"]),
+                          "grad_norm": float(out["grad_norm"])})
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"steps": steps, "peak_bytes": peak, "placements": placed}
+
+
+def phase_sharded_lm_train():
+    """gemma-7b at its published width (d 3,072, 16 heads of 256, GeGLU
+    24,576, vocab 256,000) cut to SHARDED_LAYERS layers, float32 weights
+    drawn on the card from seed 0: SHARDED_STEPS ``make_lm_train_step``
+    steps (a train shape of SHARDED_BATCH x SHARDED_TOKENS tokens, the same
+    batch each step, as the JAX package's multi-device test) on a 1x1 NCCL
+    mesh (world size 1, a file store under ``build/``) with every parameter
+    a DTensor and SHARDED_RULES installed, then the same steps from the
+    same weights without a mesh. The losses
+    agree within SHARDED_LOSS_RTOL and fall; ms a step and peak memory of
+    each. A world larger than 1 needs a card per rank (NCCL refuses two
+    ranks on one device): the multi-rank checks are the CPU tests."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import lm_shape_config
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch = get_arch(SHARDED_ARCH)
+    cfg = dataclasses.replace(arch.config, n_layers=SHARDED_LAYERS, param_dtype=torch.float32)
+    arch = dataclasses.replace(arch, config=cfg)
+    shape = ShapeSpec("sharded", "train", seq_len=SHARDED_TOKENS, global_batch=SHARDED_BATCH)
+    tcfg = lm_shape_config(arch, shape)
+    tokens = TokenPipeline(cfg.vocab, SHARDED_BATCH, SHARDED_TOKENS, seed=0).batch_at(0)
+    store = ROOT / "build" / "sharded_lm.store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    build.launches.clear()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    try:
+        sharded = _sharded_lm_run(arch, shape, tokens, make_host_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    plain = _sharded_lm_run(arch, shape, tokens, None)
+    launches = dict(build.launches)
+    got = np.array([s["loss"] for s in sharded["steps"]])
+    want = np.array([s["loss"] for s in plain["steps"]])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    ms = {k: float(np.median([s["ms"] for s in r["steps"][1:]]))
+          for k, r in (("sharded", sharded), ("plain", plain))}
+    tokens_n = SHARDED_BATCH * SHARDED_TOKENS
+    ok = (rel <= SHARDED_LOSS_RTOL and got[-1] < got[0] and want[-1] < want[0]
+          and bool(np.isfinite(got).all()) and not launches)
+    emit("sharded_lm_train", arch=SHARDED_ARCH, params=cfg.param_count(),
+         n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab, dtype="float32",
+         mesh={"data": 1, "model": 1}, backend="nccl", rules=SHARDED_RULES,
+         batch=SHARDED_BATCH, seq_len=SHARDED_TOKENS, lr=SHARDED_LR,
+         attn_chunk=tcfg.attn_chunk, loss_chunk=tcfg.loss_chunk, remat=tcfg.remat,
+         reduced={"n_layers": f"28 -> {SHARDED_LAYERS}",
+                  "why": f"28 layers of float32 weights, gradients and AdamW moments are "
+                         f"{16 * dataclasses.replace(cfg, n_layers=28).param_count() / 1e9:.0f}"
+                         " GB; one card holds 80"},
+         placements=sharded["placements"], steps={"sharded": sharded["steps"],
+                                                  "plain": plain["steps"]},
+         step_ms=ms, tokens_per_s={k: tokens_n / (v / 1e3) for k, v in ms.items()},
+         peak_bytes={"sharded": sharded["peak_bytes"], "plain": plain["peak_bytes"]},
+         loss_max_rel_err=rel, loss_rtol=SHARDED_LOSS_RTOL, bit_equal=bool((got == want).all()),
+         launches=launches)
+    if not ok:
+        raise AssertionError(f"sharded_lm_train: losses {got} against {want} (rel {rel}), "
+                             f"launches {launches}")
+
+
+def phase_examples():
+    """The two matching examples at their default arguments on the card:
+    ``launch/quickstart.py`` (the four Part-1 engines, the exact MWM and its
+    ratio, the H100 plan) and ``launch/matching_e2e.py`` (custom CSR,
+    ``mwm_blocked(backend="kernel")``, the host merge, the straggler monitor,
+    a checkpoint under ``build/`` and the restart), each with the launch
+    counts set to 0 just before it; row 1 must launch in both and each ratio
+    be at most 4 + eps. Returns row 1's launches of each."""
+    import shutil
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.launch import matching_e2e, quickstart
+
+    runs, launches = {}, {}
+    ckpt = ROOT / "build" / "matching_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for name, fn in (("quickstart", quickstart.run),
+                     ("matching_e2e", lambda: matching_e2e.run(ckpt_dir=str(ckpt)))):
+        build.launches.clear()
+        t0 = time.perf_counter()
+        runs[name] = fn()
+        runs[name]["wall_s"] = time.perf_counter() - t0
+        launches[name] = dict(build.launches)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit("examples", runs=runs, launches=launches)
+    row1 = {name: launches[name].get(kernel.NAME, 0) for name in runs}
+    bad = [name for name, r in runs.items()
+           if row1[name] <= 0 or not r["ratio"] <= r["bound"] + 1e-6]
+    if bad:
+        raise AssertionError(f"examples {bad}: launches {launches}, "
+                             f"ratios { {k: (r['ratio'], r['bound']) for k, r in runs.items()} }")
+    return row1
+
+
 def main():
     import torch
 
@@ -2577,6 +2745,7 @@ def main():
     phase_lm_train()
     phase_lm_train_held_to_cpu()
     phase_recsys_train()
+    phase_sharded_lm_train()
     config, stream, cfg, gen_s, h2d_s = paper_stream()
     max_err, timed = phase_kernel_vs_plain(stream, cfg, config.K)
     wave_checks = phase_wave_kernels_vs_plain(stream, cfg)
@@ -2606,6 +2775,7 @@ def main():
     phase_lm_serve()
     phase_lm_held_to_cpu()
     phase_recsys_serve()
+    example_launches = phase_examples()
     source = "src/repro_torch/kernels/substream_match/csrc/"
     rows = [{
         "name": kernel.NAME,
@@ -2629,6 +2799,7 @@ def main():
         "merge_device_ms_L1": merge["ms"],
         "launches_coarsen_by_matching": coarsen_launches,
         "launches_gnn_train": gnn_launches,
+        "launches_examples": example_launches,
     }]
     for name, line in ((kernel.MEGA_NAME, 519), (kernel.WAVES_NAME, 243)):
         err, t = wave_checks[name]

@@ -14,7 +14,16 @@ with the same layout on disk:
   * async save: file IO happens on a persistent writer thread fed by a
     bounded queue; the caller pays the host copy and the enqueue, with
     backpressure once ``QUEUE_DEPTH`` checkpoints are outstanding;
-  * retention: keep the newest ``keep`` checkpoints.
+  * retention: keep the newest ``keep`` checkpoints;
+  * sharded trees: a DTensor leaf is written whole (``full_tensor()``, a
+    collective), as jax saves a sharded array, and ``restore(...,
+    shardings=...)`` places each leaf on any mesh (the elastic-remesh hook:
+    one file restores onto any mesh). Under an initialised process group of
+    more than one rank the manager is collective: every rank calls ``save``
+    and ``restore``, every rank gathers the same contents, rank 0 alone
+    writes, and a barrier after the write (``save``, synchronous) or after
+    the writer's queue is drained (``restore``) keeps a rank from reading a
+    step that rank 0 has not committed.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> dict:
@@ -48,9 +59,16 @@ def _flatten_with_paths(tree, prefix: str = "") -> dict:
 
 
 def _to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _collective() -> bool:
+    """Whether this process is one rank of an initialised group of several."""
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
 def _map_leaves(fn, tree):
@@ -66,22 +84,41 @@ def save_pytree(tree, path: str) -> None:
     np.savez(path, **{k: _to_host(v) for k, v in _flatten_with_paths(tree).items()})
 
 
-def load_pytree(template, path: str):
-    """Restore into the structure of ``template`` (numpy arrays); each leaf
-    takes its template leaf's dtype when it has one."""
+def _load_leaf(arr: np.ndarray, leaf, shard):
+    """``arr`` as its template leaf: a torch tensor template (``abstract_params``'
+    meta tensors) gives a tensor of its dtype, another template with a dtype
+    a numpy array of that dtype; with ``shard`` (a ``MeshPlacement``), a
+    DTensor on its mesh, each rank keeping its own shard of the whole array
+    it read."""
+    if isinstance(leaf, torch.Tensor):
+        value = torch.from_numpy(arr).to(leaf.dtype)
+    else:
+        value = arr.astype(leaf.dtype) if hasattr(leaf, "dtype") else arr
+    if shard is None:
+        return value
+    t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(value))
+    return distribute_tensor(t.to(shard.mesh.device_type), shard.mesh, shard.placements,
+                             src_data_rank=None)
+
+
+def load_pytree(template, path: str, shardings=None):
+    """Restore into the structure of ``template`` (numpy arrays, or tensors:
+    ``abstract_params``' meta tensors will do); each leaf takes its template
+    leaf's dtype when it has one. ``shardings``: an optional tree of the
+    same structure whose leaves are ``MeshPlacement`` values
+    (``repro_torch.models.param.shardings``): each leaf then comes back as
+    a DTensor on that mesh, whatever mesh it was saved from."""
     with np.load(path) as data:
-        def load(key, leaf):
-            arr = data[key]
-            return arr.astype(leaf.dtype) if hasattr(leaf, "dtype") else arr
-
-        def walk(tree, prefix=""):
+        def walk(tree, shard, prefix=""):
             if isinstance(tree, dict):
-                return {k: walk(v, f"{prefix}{k}/") for k, v in tree.items()}
+                return {k: walk(v, None if shard is None else shard[k], f"{prefix}{k}/")
+                        for k, v in tree.items()}
             if isinstance(tree, (list, tuple)):
-                return type(tree)(walk(v, f"{prefix}{i}/") for i, v in enumerate(tree))
-            return load(prefix[:-1], tree)
+                return type(tree)(walk(v, None if shard is None else shard[i], f"{prefix}{i}/")
+                                  for i, v in enumerate(tree))
+            return _load_leaf(data[prefix[:-1]], tree, shard)
 
-        return walk(template)
+        return walk(template, shardings)
 
 
 def _fsync_path(path: str) -> None:
@@ -123,11 +160,15 @@ class CheckpointManager:
         host_state = {name: _map_leaves(_to_host, tree) for name, tree in state.items()}
         meta = dict(metadata or {})
         meta.update({"step": step, "time": time.time(), "trees": sorted(host_state)})
-        if self.async_save:
-            self._ensure_worker()
-            self._queue.put((step, host_state, meta))
-        else:
-            self._write(step, host_state, meta)
+        collective = _collective()
+        if not collective or dist.get_rank() == 0:  # rank 0 writes what every rank gathered
+            if self.async_save:
+                self._ensure_worker()
+                self._queue.put((step, host_state, meta))
+            else:
+                self._write(step, host_state, meta)
+        if collective and not self.async_save:
+            dist.barrier()
 
     def _ensure_worker(self):
         if self._worker is None:
@@ -213,14 +254,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, templates: dict[str, Any], step: Optional[int] = None):
-        """Returns (step, {name: tree of numpy arrays}) or (None, None) if empty."""
+    def restore(self, templates: dict[str, Any], step: Optional[int] = None,
+                shardings: Optional[dict[str, Any]] = None):
+        """Returns (step, {name: tree}) or (None, None) if empty; a tree of
+        ``templates`` that has an entry in ``shardings`` comes back placed on
+        its mesh (:func:`load_pytree`)."""
         self.wait()
+        if _collective():
+            dist.barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         base = os.path.join(self.directory, f"step_{step:08d}")
         out = {}
         for name, tmpl in templates.items():
-            out[name] = load_pytree(tmpl, os.path.join(base, f"{name}.npz"))
+            shard = (shardings or {}).get(name)
+            out[name] = load_pytree(tmpl, os.path.join(base, f"{name}.npz"), shard)
         return step, out

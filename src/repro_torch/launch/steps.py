@@ -8,7 +8,9 @@ for the GNN, LM and recsys train steps and the LM and recsys serving steps.
   specs, the train step (:func:`make_lm_train_step`) and the prefill and
   decode steps (:func:`make_lm_prefill`, :func:`make_lm_decode`);
 * BERT4Rec: the input and state specs, the two-stage top-k
-  (:func:`sharded_topk`) and the train, serving and retrieval steps
+  (:func:`sharded_topk`, also over a DTensor score block sharded over the
+  vocabulary: each rank's columns first, then the shards' candidates) and
+  the train, serving and retrieval steps
   (:func:`make_recsys_step`);
 * :func:`default_opt_cfg`: bf16 moments above 100 B parameters.
 
@@ -20,8 +22,10 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.registry import ArchSpec, ShapeSpec, sampled_subgraph_sizes
 from repro_torch.core.types import resolve_device
@@ -123,6 +127,8 @@ def _descend(opt: AdamW, loss, lr) -> dict:
     clipping)."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if isinstance(loss, DTensor):  # a sharded step's loss: its global value
+        loss = loss.full_tensor()
     return {"loss": loss.detach(), "grad_norm": opt.step(lr=lr)}
 
 
@@ -349,6 +355,8 @@ def sharded_topk(scores, k: int, shards: int = 16):
     ties as ``jax.lax.top_k`` does (the lower index, the lower position), so
     the ids are the reference's. Returns (values [B, k], global indices
     [B, k]), values descending."""
+    if isinstance(scores, DTensor):
+        return _sharded_topk_dtensor(scores, k, shards)
     B, V = scores.shape
     assert V % shards == 0
     s = scores.reshape(B, shards, V // shards)
@@ -357,6 +365,41 @@ def sharded_topk(scores, k: int, shards: int = 16):
     gidx = (i1 + base).reshape(B, shards * k)
     v2, i2 = torch.sort(v1.reshape(B, shards * k), dim=-1, descending=True, stable=True)
     return v2[:, :k], torch.gather(gidx, 1, i2[:, :k])
+
+
+def _sharded_topk_dtensor(scores: DTensor, k: int, shards: int):
+    """:func:`sharded_topk` of a [B, V] DTensor whose columns are split over
+    some mesh dimensions (``Shard(1)``; the others ``Shard(0)`` or
+    ``Replicate``): each rank takes the top ``k`` of its own columns (its
+    ``shards / n`` slices, as the plain path does them), the ``n * k``
+    candidates of a row are gathered in column order (never the block),
+    and a stable descending sort takes the top ``k``. Ties resolve to the
+    lower global index at every stage, so the result is the plain path's.
+    Returns DTensors [B, k], the rows placed as ``scores``' and the columns
+    replicated."""
+    mesh, place = scores.device_mesh, tuple(scores.placements)
+    if any(p not in (Shard(0), Shard(1), Replicate()) for p in place):
+        raise ValueError(f"sharded_topk: placements {place}; want Shard(0), Shard(1) or Replicate")
+    cols = [d for d, p in enumerate(place) if p == Shard(1)]
+    n = math.prod(mesh.size(d) for d in cols)
+    V = scores.shape[1]
+    if V % shards or shards % n:
+        raise ValueError(f"sharded_topk: {V} columns, {shards} slices, {n} column shards")
+    local = scores.to_local()
+    if local.shape[1] * n != V:
+        raise ValueError(f"sharded_topk: uneven column shards ({local.shape[1]} of {V} over {n})")
+    coord = mesh.get_coordinate()
+    block = 0  # this rank's column block, the mesh dimensions major to minor
+    for d in cols:
+        block = block * mesh.size(d) + coord[d]
+    v1, i1 = sharded_topk(local, k, shards // n)  # [B_local, k], local columns
+    i1 = i1 + block * local.shape[1]
+    gathered = [p if p != Shard(1) else Replicate() for p in place]
+    v1, i1 = (DTensor.from_local(t, mesh, place, run_check=False).redistribute(mesh, gathered)
+              .to_local() for t in (v1, i1))  # [B_local, n * k] in column order
+    v2, i2 = torch.sort(v1, dim=-1, descending=True, stable=True)
+    out = (v2[:, :k], torch.gather(i1, 1, i2[:, :k]))
+    return tuple(DTensor.from_local(t, mesh, gathered, run_check=False) for t in out)
 
 
 def make_recsys_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig | None = None,

@@ -26,7 +26,7 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     idx = ids.long()
     idx = torch.where(idx < 0, idx + V, idx)
     outside = (idx < 0) | (idx >= V)
-    return F.embedding(idx.clamp(0, V - 1), table).masked_fill_(outside[..., None], float("nan"))
+    return F.embedding(idx.clamp(0, V - 1), table).masked_fill(outside[..., None], float("nan"))
 
 
 def embedding_bag(table, ids, mode: str = "sum", weights=None, valid=None):

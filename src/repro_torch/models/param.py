@@ -13,8 +13,12 @@ generator gives the same values on every device; a CUDA generator draws
 on the card, which a model of billions of parameters needs (its float32
 draws would not fit the host's memory one leaf at a time).
 
-The sharding and dry-run halves of the reference module (``abstract_params``,
-``pspecs``, ``shardings``) are not ported yet (ROADMAP.md §1 item 14).
+The same tree serves sharded execution: :func:`pspecs` gives each leaf's
+mesh axes under a logical->mesh-axis rule map (the reference's
+``PartitionSpec``, as :class:`PSpec`), :func:`shardings` their DTensor
+placements on a ``DeviceMesh``, :func:`distribute_params` places a built
+module's parameters by them, and :func:`abstract_params` gives shape and
+dtype templates on the ``meta`` device (nothing is allocated).
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ from typing import Any, Iterator, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.distributed.sharding import MeshPlacement, placements, resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +120,75 @@ def build_params(module: nn.Module, spec_tree: dict, device, seed: int = 0,
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     return init_params(module, spec_tree, generator)
+
+
+class PSpec(tuple):
+    """Per tensor dimension, the mesh axis it is split over: a name, a tuple
+    of names, or None (the reference's ``PartitionSpec``)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PSpec{tuple(self)!r}"
+
+
+def _map_specs_with_paths(fn, spec_tree, prefix: str = ""):
+    """The tree with each spec replaced by ``fn(dotted path, spec)``."""
+    if isinstance(spec_tree, ArraySpec):
+        return fn(prefix, spec_tree)
+    join = lambda k: f"{prefix}.{k}" if prefix else str(k)
+    if isinstance(spec_tree, dict):
+        return {k: _map_specs_with_paths(fn, v, join(k)) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        return type(spec_tree)(_map_specs_with_paths(fn, v, join(i))
+                               for i, v in enumerate(spec_tree))
+    raise TypeError(f"not a spec tree: {type(spec_tree)}")
+
+
+def _map_specs(fn, spec_tree):
+    return _map_specs_with_paths(lambda _, s: fn(s), spec_tree)
+
+
+def abstract_params(spec_tree):
+    """The tree's shape-and-dtype templates: empty tensors on the ``meta``
+    device (a checkpoint restore's template; nothing is allocated)."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), spec_tree)
+
+
+def pspecs(spec_tree, rules: dict):
+    """rules: logical axis name -> mesh axis (str | tuple | None). Per leaf,
+    a :class:`PSpec`; a mesh axis appears at most once in a leaf's."""
+    return _map_specs(lambda s: PSpec(*resolve(s.logical, rules)), spec_tree)
+
+
+def shardings(spec_tree, rules: dict, mesh):
+    """Per leaf, a :class:`MeshPlacement`: its DTensor placements on ``mesh``
+    (one per mesh dimension; a dimension over a tuple of mesh axes is
+    ``Shard`` on each of them)."""
+    return _map_specs(
+        lambda s: MeshPlacement(mesh, placements(mesh, resolve(s.logical, rules))), spec_tree)
+
+
+def param_tree(module: nn.Module, spec_tree):
+    """``module``'s parameters in the spec tree's structure (the reference's
+    parameter pytree; DTensors stay DTensors), e.g. to checkpoint."""
+    return _map_specs_with_paths(lambda path, s: module.get_parameter(path), spec_tree)
+
+
+@torch.no_grad()
+def distribute_params(module: nn.Module, spec_tree: dict, rules: dict, mesh) -> nn.Module:
+    """Replace each of the tree's parameters on ``module`` by a DTensor
+    parameter on ``mesh`` with its :func:`shardings` placements, from the
+    values this rank holds (every rank built the same module: no data moves),
+    one leaf at a time. Returns ``module``."""
+    for path, spec in iter_specs(spec_tree):
+        owner, _, name = path.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        full = getattr(sub, name)
+        shard = distribute_tensor(full.detach(), mesh, placements(mesh, resolve(spec.logical, rules)),
+                                  src_data_rank=None)
+        delattr(sub, name)
+        del full
+        sub.register_parameter(name, nn.Parameter(shard))
+    return module

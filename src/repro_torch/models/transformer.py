@@ -55,6 +55,7 @@ from a leaf-sized tensor per layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -62,10 +63,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, replicated_like
 from repro_torch.models.embedding import take_rows
 from repro_torch.models.param import ArraySpec, build_params
 
@@ -341,7 +344,7 @@ def rmsnorm(x, scale, eps):
 def rope(x, positions, freqs):
     """x: [..., S, H, D]; positions broadcastable [..., S]; freqs float32 [D/2]."""
     half = x.shape[-1] // 2
-    ang = positions[..., None].float() * freqs  # [..., S, half]
+    ang = replicated_like(positions[..., None].float() * freqs, x)  # [..., S, half]
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -391,6 +394,8 @@ def attention(q, k, v, cfg: TransformerConfig):
     Where autograd records and ``cfg.remat`` is set, each step is
     checkpointed (the reference's per-step ``jax.checkpoint``).
     """
+    if isinstance(q, DTensor):
+        return _attention_sharded(q, k, v, cfg)
     B, S, Hq, D = q.shape
     Hk = k.shape[2]
     G = Hq // Hk
@@ -418,6 +423,31 @@ def attention(q, k, v, cfg: TransformerConfig):
         qpos = torch.arange(nq * c, S, device=dev)
         out[:, nq * c:] = step(q[:, nq * c:], kT, vh, qpos, G)
     return out
+
+
+def _attention_sharded(q, k, v, cfg: TransformerConfig):
+    """:func:`attention` of DTensor operands, run on each rank's shard of
+    them through ``local_map``: attention is local to a (sequence, head)
+    pair of the batch, so where q, k and v split only the batch and the heads
+    (evenly, alike), each rank's shard is a whole attention problem and the
+    plain code runs on it unchanged (no communication; the values are the
+    unsharded ones). The batched products would otherwise flatten two
+    sharded batch dimensions, which DTensor refuses. Raises ``ValueError``
+    for any other layout (a sharded sequence or head width, partial sums,
+    uneven head shards)."""
+    place = tuple(q.placements)
+    if tuple(k.placements) != place or tuple(v.placements) != place:
+        raise ValueError(f"attention: q, k, v placed {place}, {tuple(k.placements)}, "
+                         f"{tuple(v.placements)}; want them alike")
+    if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, 2)) for p in place):
+        raise ValueError(f"attention: placements {place}; only the batch and the heads split")
+    heads = math.prod(q.device_mesh.size(d) for d, p in enumerate(place) if p.is_shard(2))
+    if q.shape[2] % heads or k.shape[2] % heads:
+        raise ValueError(f"attention: {q.shape[2]} and {k.shape[2]} heads over {heads} shards")
+    layout = list(place)  # a list: a tuple of placements reads as one per output
+    local = local_map(functools.partial(attention, cfg=cfg), out_placements=layout,
+                      in_placements=(layout, layout, layout), device_mesh=q.device_mesh)
+    return local(q, k, v)
 
 
 def _moe_ffn(x, router_w, w1, w2, cfg: TransformerConfig):
@@ -561,6 +591,7 @@ def backbone(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None
     ``torch.no_grad()`` (a server) they work in place and nothing is kept."""
     cfg = cfg or model.cfg
     S = tokens.shape[1]
+    tokens = constrain(tokens, "dp", None)
     x = constrain(_embed(model, tokens), "dp", "model_seq", "model_d")
     positions = torch.arange(S, device=x.device)[None, :]
     x = _run_layers(model, x, positions, cfg)
@@ -573,8 +604,12 @@ def _chunk_nll(lm_head, h, labels, mask, cfg: TransformerConfig):
     logits = _matmul(h, lm_head).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.where(mask, torch.logsumexp(logits, -1) - gold, 0.0).sum()
+    # the gold logit keeps its last axis until the subtraction: on a
+    # vocabulary-sharded DTensor the gather's masked partial sum is reduced
+    # there, and its mask is shaped like the gather's output
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    nll = (torch.logsumexp(logits, -1, keepdim=True) - gold)[..., 0]
+    return torch.where(mask, nll, 0.0).sum()
 
 
 def loss_fn(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None):
@@ -590,9 +625,11 @@ def loss_fn(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None)
     if S % c:
         raise ValueError(f"loss_chunk {c} does not divide the sequence length {S}")
     h = backbone(model, tokens, cfg)
+    tokens = constrain(tokens, "dp", None)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(B, S, dtype=torch.bool, device=tokens.device)
     mask[:, -1] = False
+    mask = constrain(mask, "dp", None)
     remat = cfg.remat and _recording(h, model.lm_head)
     nlls = []
     for j in range(0, S, c):

@@ -16,6 +16,17 @@ whole leaf, and its float32 temporaries stay a few slices in size (a
 stacked [40, 2304, 11520] leaf is 4.25 GB a float32 copy). The gradients
 in ``.grad`` are left as they are.
 
+On DTensor parameters (placed on a ``DeviceMesh`` by
+``repro_torch.models.param.distribute_params``) the moments are DTensors
+with the parameter's placements; each gradient is first laid out as its
+parameter (a partial sum is reduced: the data-parallel all-reduce), and the
+slices walk the local shards of the parameter, its gradient and its
+moments (``to_local()``), which the updates write in place. Indexing a
+DTensor would not do: a slice of a sharded DTensor is a new, gathered
+tensor, so the parameter would be left unchanged. The clip's norm is the
+norm of the whole gradient, each element counted once however it is
+placed.
+
 ``torch.optim.AdamW`` and ``clip_grad_norm_`` are not used: their epsilon
 placement and order of operations differ. The state per parameter is
 ``{"m", "v"}`` plus one ``count`` (``AdamW.count``);
@@ -28,6 +39,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.param import ArraySpec
 
@@ -63,18 +75,28 @@ def adamw_init_specs(param_spec_tree, cfg: AdamWConfig):
 def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
     """``{m, v, count}`` for a dict of named parameters: zero moments of
     ``cfg.moment_dtype`` and a zero int32 count."""
-    zeros = {k: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
-             for k, p in params.items()}
+    zeros = {k: _zeros_like(p, cfg.moment_dtype) for k, p in params.items()}
     device = next(iter(params.values())).device if params else None
     return {"m": zeros, "v": {k: z.clone() for k, z in zeros.items()},
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _zeros_like(p: torch.Tensor, dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dtype`` on its device (a DTensor: with its
+    placements on its mesh)."""
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
 def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
-    """float32 sum of ``g``'s squares, with one float32 copy of ``g`` at most."""
+    """float32 sum of ``g``'s squares, with one float32 copy of ``g`` at most
+    (a DTensor: the sum over the whole tensor, as a plain tensor)."""
     if g.dtype == torch.float32:
-        return torch.sum(torch.square(g))
-    return torch.sum(g.float().square_())
+        sq = torch.sum(torch.square(g))
+    else:
+        sq = torch.sum(g.float().square_())
+    return sq.full_tensor() if isinstance(sq, DTensor) else sq
 
 
 def _global_norm(grads: list) -> torch.Tensor:
@@ -107,6 +129,20 @@ def _row_slices(p: torch.Tensor):
         yield slice(i, i + rows)
 
 
+def _laid_out_as(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``g`` with ``p``'s placements when ``p`` is a DTensor (a partial sum
+    reduced, a replicated gradient sliced), else ``g``."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The shard of ``t`` this rank holds (its storage: writes land in ``t``),
+    or ``t`` itself when it is not a DTensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 class AdamW(torch.optim.Optimizer):
     """The reference's AdamW over ``params`` (one group). ``step()`` takes
     the gradients in ``p.grad`` and returns the global norm before
@@ -125,7 +161,8 @@ class AdamW(torch.optim.Optimizer):
         cfg = self.cfg
         params = [p for g in self.param_groups for p in g["params"]]
         lr = self.param_groups[0]["lr"] if lr is None else lr
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        grads = [_laid_out_as(p, p.grad) if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
         if cfg.grad_clip:
             gnorm = _global_norm(grads)
             scale = _clip_scale(gnorm, cfg.grad_clip)
@@ -139,10 +176,11 @@ class AdamW(torch.optim.Optimizer):
         for p, g in zip(params, grads):
             st = self.state[p]
             if "m" not in st:
-                st["m"] = torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
-                st["v"] = torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
-            for sl in _row_slices(p):
-                self._update(p[sl], g[sl], st["m"][sl], st["v"][sl], scale, lr, b1c, b2c)
+                st["m"] = _zeros_like(p, cfg.moment_dtype)
+                st["v"] = _zeros_like(p, cfg.moment_dtype)
+            p_, g_, m_, v_ = (_local(t) for t in (p, g, st["m"], st["v"]))
+            for sl in _row_slices(p_):
+                self._update(p_[sl], g_[sl], m_[sl], v_[sl], scale, lr, b1c, b2c)
         return gnorm
 
     def _update(self, p, g, m, v, scale, lr, b1c, b2c):
