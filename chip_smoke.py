@@ -71,7 +71,7 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   3 ``make_lm_train_step`` steps with the WSD
   schedule (ms, tokens/s, peak, model-FLOP share); minicpm-2b and
   moonshot-v1-16b-a3b (two router columns tied) at their published widths
-  cut to 2 layers, float32, one train step on the card held to the CPU;
+  cut to 2 and 1 layers, float32, one train step on the card held to the CPU;
   BERT4Rec at its published config on train_batch, its users cut, 3
   ``make_recsys_step`` train steps, one step of 64 users held to the CPU.
   The serving and training phases launch none of the six kernels
@@ -85,7 +85,13 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   card per rank; the multi-rank checks are the CPU tests);
 * the two matching examples at their defaults (``launch/quickstart.py``,
   ``launch/matching_e2e.py``): the packed per-edge kernel counted in each,
-  the exact MWM ratio at most 4 + eps.
+  the exact MWM ratio at most 4 + eps;
+* the dry-run tooling (``launch/dryrun.py``; a subprocess of its own, after
+  the sharded phase): its model of the sharded phase's step on a 1x1 world
+  held to what that phase measured (peak within 0.8-1.25x, the step's
+  lower bound at most the measured step) and to ``FlopCounterMode`` over one
+  step on the card (1 %), then one production cell per family on a fake
+  world of 256 ranks and one of 512 (``meta`` tensors; no launch).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. Each phase prints one JSON line; any failure raises, so the
@@ -162,7 +168,10 @@ LM_HELD_RTOL = 1e-4
 LM_TRAIN_ARCH = "minicpm-2b"
 LM_TRAIN_BATCH = 5
 LM_TRAIN_STEPS = 3
-LM_TRAIN_HELD_ARCHS = ("minicpm-2b", "moonshot-v1-16b-a3b")
+#: the archs held to the CPU in one train step, and the layers each keeps:
+#: moonshot's CPU step (64 experts a layer) is cut to one layer to keep the
+#: smoke inside its time
+LM_TRAIN_HELD_LAYERS = {"minicpm-2b": 2, "moonshot-v1-16b-a3b": 1}
 LM_TRAIN_HELD_TOKENS = 128
 #: BERT4Rec training at its published config: users a step (train_batch's 65,536
 #: cut: its [B, 40, 8,193] float32 logits are 86 GB at 65,536), steps, and the
@@ -188,6 +197,13 @@ SHARDED_LR = 1e-3
 SHARDED_RULES = {"dp": ("data",), "embed": None, "heads": "model", "kv_heads": "model",
                  "mlp": "model", "vocab": "model", "layers": None, "model_seq": None}
 SHARDED_LOSS_RTOL = 1e-5
+#: the dry-run phase (a subprocess of its own: its fake world of 256 or 512
+#: ranks never shares a process with an NCCL group): the calibration on
+#: sharded_lm_train's configuration, then one production cell per family on
+#: the fake 16x16 world and one on 2x16x16 (arch, shape, multi_pod)
+DRYRUN_CELLS = (("gemma-7b", "train_4k", False), ("gin-tu", "ogb_products", False),
+                ("bert4rec", "serve_p99", False), ("minicpm-2b", "train_4k", True))
+DRYRUN_TIMEOUT_S = 150
 
 
 def emit(phase, **fields):
@@ -2464,8 +2480,8 @@ def phase_lm_train():
 
 def phase_lm_train_held_to_cpu():
     """minicpm-2b and moonshot-v1-16b-a3b (two router columns tied: the
-    routing tie-break is held too) at their published widths cut to 2
-    layers, float32, drawn on the card from a seeded CUDA generator: one
+    routing tie-break is held too) at their published widths cut to
+    LM_TRAIN_HELD_LAYERS layers, float32, drawn on the card from a seeded CUDA generator: one
     ``make_lm_train_step`` step on 2 x LM_TRAIN_HELD_TOKENS tokens on the
     card and on a CPU copy (``_train_step_held``)."""
     import dataclasses
@@ -2483,9 +2499,9 @@ def phase_lm_train_held_to_cpu():
     assert not torch.backends.cuda.matmul.allow_tf32
     out = {}
     build.launches.clear()
-    for arch_id in LM_TRAIN_HELD_ARCHS:
+    for arch_id, n_layers in LM_TRAIN_HELD_LAYERS.items():
         arch = get_arch(arch_id)
-        cfg = dataclasses.replace(arch.config, n_layers=2, param_dtype=torch.float32)
+        cfg = dataclasses.replace(arch.config, n_layers=n_layers, param_dtype=torch.float32)
         arch = dataclasses.replace(arch, config=cfg)
         shape = ShapeSpec("held", "train", seq_len=LM_TRAIN_HELD_TOKENS, global_batch=2)
         card = tfm.Transformer(cfg, generator=torch.Generator("cuda").manual_seed(0))
@@ -2501,7 +2517,8 @@ def phase_lm_train_held_to_cpu():
         del card
         torch.cuda.empty_cache()
     launches = dict(build.launches)
-    emit("lm_train_held_to_cpu", n_layers=2, tokens=[2, LM_TRAIN_HELD_TOKENS], dtype="float32",
+    emit("lm_train_held_to_cpu", n_layers=LM_TRAIN_HELD_LAYERS, tokens=[2, LM_TRAIN_HELD_TOKENS],
+         dtype="float32",
          models=out, launches=launches)
     if launches:
         raise AssertionError(f"lm_train_held_to_cpu launched {launches}")
@@ -2640,18 +2657,14 @@ def phase_sharded_lm_train():
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.registry import ShapeSpec
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import lm_shape_config
 
     assert not torch.backends.cuda.matmul.allow_tf32
-    arch = get_arch(SHARDED_ARCH)
-    cfg = dataclasses.replace(arch.config, n_layers=SHARDED_LAYERS, param_dtype=torch.float32)
-    arch = dataclasses.replace(arch, config=cfg)
-    shape = ShapeSpec("sharded", "train", seq_len=SHARDED_TOKENS, global_batch=SHARDED_BATCH)
+    arch, shape = _sharded_arch_and_shape()
+    cfg = arch.config
     tcfg = lm_shape_config(arch, shape)
     tokens = TokenPipeline(cfg.vocab, SHARDED_BATCH, SHARDED_TOKENS, seed=0).batch_at(0)
     store = ROOT / "build" / "sharded_lm.store"
@@ -2692,6 +2705,76 @@ def phase_sharded_lm_train():
     if not ok:
         raise AssertionError(f"sharded_lm_train: losses {got} against {want} (rel {rel}), "
                              f"launches {launches}")
+    return {"peak_bytes": sharded["peak_bytes"], "step_ms": ms["sharded"]}
+
+
+def _sharded_arch_and_shape():
+    """sharded_lm_train's arch (published width, SHARDED_LAYERS layers,
+    float32) and train shape."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+
+    arch = get_arch(SHARDED_ARCH)
+    cfg = dataclasses.replace(arch.config, n_layers=SHARDED_LAYERS, param_dtype=torch.float32)
+    return (dataclasses.replace(arch, config=cfg),
+            ShapeSpec("sharded", "train", seq_len=SHARDED_TOKENS, global_batch=SHARDED_BATCH))
+
+
+def _dryrun_child(measured_json: str):
+    """The dry-run phase's body, in its own process: the calibration, then
+    DRYRUN_CELLS; one JSON line each."""
+    import torch
+
+    from repro_torch.launch.dryrun import calibrate, run_cell
+    from repro_torch.optim import AdamWConfig
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch, shape = _sharded_arch_and_shape()
+    t0 = time.perf_counter()
+    cal = calibrate(arch, shape, SHARDED_RULES, json.loads(measured_json),
+                    AdamWConfig(lr=SHARDED_LR))
+    print(json.dumps({"calibration": cal, "seconds": time.perf_counter() - t0,
+                      "torch": torch.__version__}), flush=True)
+    for arch_id, shape_name, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = run_cell(arch_id, shape_name, multi_pod)
+        print(json.dumps({"cell": rec, "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def phase_dryrun(measured):
+    """The dry-run tooling (``repro_torch.launch.dryrun``) in a subprocess
+    with its own timeout: its model of sharded_lm_train's step on a 1x1
+    world held to what that phase measured (``measured``: peak bytes, ms a
+    step) and to ``FlopCounterMode`` over one step on the card, then
+    DRYRUN_CELLS on fake worlds of 256 and 512 ranks (``meta`` tensors,
+    nothing on the card), each record printed on a line of its own. Fails
+    if the calibration misses its bands, a cell records an error or no
+    peak, or the child fails or outlives DRYRUN_TIMEOUT_S."""
+    t0 = time.perf_counter()
+    code = f"import chip_smoke; chip_smoke._dryrun_child({json.dumps(json.dumps(measured))})"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    lines = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+    cal = next((l for l in lines if "calibration" in l), None)
+    cells = [l for l in lines if "cell" in l]
+    for c in cells:
+        emit("dryrun_cell", seconds=c["seconds"], **c["cell"])
+    emit("dryrun", seconds=time.perf_counter() - t0, returncode=proc.returncode,
+         torch=cal and cal["torch"], calibration=cal and {
+             k: v for k, v in cal["calibration"].items() if k != "record"},
+         calibration_record=cal and cal["calibration"]["record"],
+         calibration_s=cal and cal["seconds"], cells=len(cells))
+    bad = [c["cell"] for c in cells
+           if "error" in c["cell"] or not c["cell"]["memory"]["peak_per_device"] > 0]
+    if proc.returncode or cal is None or not cal["calibration"]["ok"] or bad \
+            or len(cells) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dryrun: rc {proc.returncode}, calibration "
+                             f"{cal and cal['calibration']['ok']}, bad cells {bad}; "
+                             f"stderr {proc.stderr[-3000:]}")
 
 
 def phase_examples():
@@ -2745,7 +2828,7 @@ def main():
     phase_lm_train()
     phase_lm_train_held_to_cpu()
     phase_recsys_train()
-    phase_sharded_lm_train()
+    phase_dryrun(phase_sharded_lm_train())
     config, stream, cfg, gen_s, h2d_s = paper_stream()
     max_err, timed = phase_kernel_vs_plain(stream, cfg, config.K)
     wave_checks = phase_wave_kernels_vs_plain(stream, cfg)

@@ -144,3 +144,94 @@ def constrain(x, *logical):
     want = placements(mesh, resolve(logical, rules))
     x = on_mesh(x, mesh)
     return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def _strides(shape) -> tuple:
+    """A contiguous tensor's strides (computed, not allocated: under a
+    tracing mode even a ``meta`` tensor counts as an allocation)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= n
+    return tuple(reversed(out))
+
+
+def zeros(shape, dtype, device, *logical):
+    """Zeros of ``shape``: a plain tensor where :func:`constrain` would
+    return its input, else a DTensor laid out as the logical names resolve,
+    each rank allocating only its own shard."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None or mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if len(logical) != len(shape):
+        raise ValueError(f"zeros{logical}: {len(logical)} names for a {len(shape)}-d tensor")
+    want = placements(mesh, resolve(logical, rules))
+    local_shape, _ = compute_local_shape_and_global_offset(shape, mesh, want)
+    local = torch.zeros(local_shape, dtype=dtype, device=device)
+    return DTensor.from_local(local, mesh, want, run_check=False, shape=torch.Size(shape),
+                              stride=_strides(shape))
+
+
+class _PinGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.place = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.place:
+            g = g.redistribute(ctx.mesh, ctx.place)
+        return g
+
+
+def pin_grad(x):
+    """``x``, whose gradient is laid out as ``x`` is (a DTensor's; anything
+    else is returned as it is). Put after a reshape that merges a dimension:
+    the gradient then reaches the reshape's backward, which splits that
+    dimension again, in a layout it can split (DTensor refuses to split a
+    dimension sharded into uneven pieces)."""
+    return _PinGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+def row_layout(t: DTensor) -> list:
+    """A DTensor's placements, which must split only its first axis (rows:
+    edges, users), or nothing."""
+    place = list(t.placements)
+    if not all(p.is_replicate() or p.is_shard(0) for p in place):
+        raise ValueError(f"rows placed {place}; want Shard(0) or Replicate")
+    return place
+
+
+def row_chunks(t: torch.Tensor, n: int) -> list:
+    """``t`` [R, ...] in ``n`` chunks of rows along its first axis. A DTensor
+    split over its rows is chunked within each rank's block (chunk i holds
+    the i-th part of every rank's rows), so no row moves; :func:`cat_rows`
+    puts such chunks back in order."""
+    if not isinstance(t, DTensor):
+        return list(t.reshape(n, t.shape[0] // n, *t.shape[1:]))
+    mesh, place = t.device_mesh, row_layout(t)
+    local = t.to_local()
+    if local.shape[0] % n:
+        raise ValueError(f"row_chunks: {local.shape[0]} rows a rank in {n} chunks")
+    shape = (t.shape[0] // n, *t.shape[1:])
+    stride = _strides(shape)
+    return [DTensor.from_local(c, mesh, place, run_check=False, shape=torch.Size(shape),
+                               stride=stride)
+            for c in local.reshape(n, local.shape[0] // n, *local.shape[1:])]
+
+
+def cat_rows(parts: list, like: torch.Tensor) -> torch.Tensor:
+    """The chunks of :func:`row_chunks` of ``like`` (or results row for row)
+    joined in ``like``'s row order: ``torch.cat``, or for a DTensor ``like``
+    each part laid out as ``like``'s rows are (a part that came back whole
+    keeps this rank's rows of it) and each rank's pieces joined in order."""
+    if not isinstance(like, DTensor):
+        return torch.cat(parts)
+    mesh, place = like.device_mesh, row_layout(like)
+    local = torch.cat([on_mesh(p, mesh).redistribute(mesh, place).to_local() for p in parts])
+    shape = (sum(p.shape[0] for p in parts), *parts[0].shape[1:])
+    return DTensor.from_local(local, mesh, place, run_check=False, shape=torch.Size(shape),
+                              stride=_strides(shape))

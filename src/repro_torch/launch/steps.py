@@ -14,25 +14,30 @@ for the GNN, LM and recsys train steps and the LM and recsys serving steps.
   (:func:`make_recsys_step`);
 * :func:`default_opt_cfg`: bf16 moments above 100 B parameters.
 
-Each step runs on the ``device`` it was made for (None: the CUDA card) and
-moves its batch there. ``arch_rules`` (the logical-axis -> mesh-axis map of
-the dry-run) and ``build_step`` are not ported yet (ROADMAP.md §1 item 14).
+* :func:`arch_rules`: the logical-axis -> mesh-axis map of the production
+  meshes, and :func:`build_step`: an (arch, shape) step with its argument
+  templates (``meta`` tensors) and placements, as the dry-run takes it.
+
+Each step runs on the ``device`` it was made for (None: the CUDA card;
+``"meta"`` for the dry-run) and moves its batch there.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 import math
+from typing import Any
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.registry import ArchSpec, ShapeSpec, sampled_subgraph_sizes
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import cat_rows, resolve, row_chunks, sharding_rules
 from repro_torch.models import bert4rec as b4r
 from repro_torch.models import transformer as tfm
 from repro_torch.models.gnn_common import GraphBatch
-from repro_torch.models.param import ArraySpec
+from repro_torch.models.param import ArraySpec, PSpec, abstract_params, pspecs
 from repro_torch.optim import AdamW, AdamWConfig, adamw_init_specs
 
 N_SRC_BLOCKS = 16  # paper-style blocking: one node block resident/chunk
@@ -44,6 +49,67 @@ def _gnn_module(arch: ArchSpec):
 
 def _rup(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+# --------------------------------------------------------------- rules
+
+
+def arch_rules(arch: ArchSpec, shape: ShapeSpec, multi_pod: bool) -> dict:
+    """The logical-axis -> mesh-axis map of the production meshes (the
+    reference's, key for key): ``("data", "model")`` 16x16, or ``("pod",
+    "data", "model")`` 2x16x16 with ``multi_pod``."""
+    dp = ("pod", "data") if multi_pod else ("data",)
+    model = "model"
+    msize = 16
+    rules: dict[str, Any] = {
+        "dp": dp,
+        "layers": None,
+        "vocab": model,
+        "mlp": model,
+        "rows": model,
+        "seq": None,
+        "nodes": None,
+        "edges": dp,
+        "cache_batch": dp,
+    }
+    if arch.family == "lm":
+        cfg: tfm.TransformerConfig = arch.config
+        rules["embed"] = "data"  # FSDP: d_model rows over data
+        # minicpm's 36 heads do not divide the model axis: they stay replicated
+        rules["heads"] = model if cfg.n_heads % msize == 0 else None
+        rules["kv_heads"] = model if cfg.n_kv % msize == 0 else None
+        # heads-sharded archs shard the layer boundary's feature dimension;
+        # replicated-head archs shard the sequence (their sequence-parallel
+        # attention)
+        sharded_heads = cfg.n_heads % msize == 0
+        rules["model_seq"] = None if sharded_heads else model
+        rules["model_d"] = model if sharded_heads else None
+        rules["expert"] = model if cfg.expert_sharding == "ep" else None
+        rules["expert_mlp"] = model if cfg.expert_sharding == "tp" else None
+        if shape.kind in ("decode", "prefill"):
+            if shape.kind == "decode" and shape.global_batch == 1:
+                rules["cache_batch"] = None
+                rules["seq"] = dp + (model,) if rules["kv_heads"] is None else dp
+            elif rules["kv_heads"] is None:
+                rules["seq"] = model
+    elif arch.family == "gnn":
+        big = shape.n_nodes > 100_000
+        if shape.n_nodes > 1_000_000:  # split the node state over both axes
+            # but GIN's, whose message is its source's state alone: it stays
+            # replicated (2.4M x 64 float32, 627 MB), the edges data-parallel
+            # with an all-reduce per layer
+            rules["nodes"] = None if arch.gnn_model == "gin" else ("data", model)
+        else:
+            rules["nodes"] = model if big else None
+        rules["edges"] = dp + (model,) if big else dp
+        rules["embed"] = None
+    else:  # recsys
+        rules["embed"] = None
+        rules["heads"] = None
+        rules["seq"] = None
+        if shape.batch and shape.batch < 16:  # retrieval: a single query
+            rules["dp"] = None
+    return rules
 
 
 def gnn_edge_chunk(arch: ArchSpec, shape: ShapeSpec) -> int:
@@ -166,17 +232,21 @@ def make_gnn_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, 
 # --------------------------------------------------------------- LM
 
 
-def lm_shape_config(arch: ArchSpec, shape: ShapeSpec) -> tfm.TransformerConfig:
+def lm_shape_config(arch: ArchSpec, shape: ShapeSpec, multi_pod: bool = False
+                    ) -> tfm.TransformerConfig:
     """The arch's config at the shape: the reference's ``_lm_shape_overrides``
-    on one pod (its ``unroll`` and ``multi_pod`` switches are the dry-run's)."""
+    (its ``unroll`` switch changes nothing in the port: the loops are Python
+    loops). ``multi_pod``: the MoE dispatch groups are the 32 data-parallel
+    shards of two pods, not 16."""
     cfg: tfm.TransformerConfig = arch.config
     # replicated-head archs (36 % 16 != 0) run sequence-parallel attention:
     # `attn_par` query chunks batched into one product
     sharded_heads = cfg.n_heads % 16 == 0
     par = 1 if sharded_heads else 16
-    # MoE dispatch groups = DP degree (per-shard-local dispatch, 16 shards);
-    # decode batches may be smaller than DP
-    groups = min(16, shape.global_batch) if cfg.is_moe else 1
+    # MoE dispatch groups = DP degree (per-shard-local dispatch); decode
+    # batches may be smaller than DP
+    dp_size = 32 if multi_pod else 16
+    groups = min(dp_size, shape.global_batch) if cfg.is_moe else 1
     if shape.kind == "train":
         return dataclasses.replace(
             cfg, attn_chunk=512 if sharded_heads else 256, attn_par=par,
@@ -214,7 +284,8 @@ def lm_input_specs(arch: ArchSpec, shape: ShapeSpec):
     raise ValueError(shape.kind)
 
 
-def make_lm_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, device=None):
+def make_lm_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, device=None,
+                       multi_pod: bool = False):
     """``step(model, opt, batch, lr=None) -> {"loss", "grad_norm"}``: the
     next-token loss of ``batch["tokens"]`` (:func:`tfm.loss_fn` at the
     shape's config: layers, attention steps and loss chunks checkpointed),
@@ -222,7 +293,7 @@ def make_lm_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, d
     ``opt_cfg.lr``, as the reference's step; a trainer passes its
     schedule's), on ``device`` (None: the card). The model and the
     optimizer are updated in place."""
-    cfg = lm_shape_config(arch, shape)
+    cfg = lm_shape_config(arch, shape, multi_pod)
     dev = resolve_device(device)
 
     def step(model: tfm.Transformer, opt: AdamW, batch, lr: float | None = None):
@@ -232,13 +303,14 @@ def make_lm_train_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig, d
     return step
 
 
-def make_lm_prefill(arch: ArchSpec, shape: ShapeSpec, device=None, max_len=None):
+def make_lm_prefill(arch: ArchSpec, shape: ShapeSpec, device=None, max_len=None,
+                    multi_pod: bool = False):
     """``step(model, batch) -> (cache, logits [B, V])``: the prompt
     ``batch["tokens"]`` through :func:`tfm.prefill` at the shape's config on
     ``device`` (None: the card), into a cache of ``max_len`` slots (default
     the prompt's length, the reference's cache), and the last position's
     float32 logits (no soft cap, as the reference's step)."""
-    cfg = lm_shape_config(arch, shape)
+    cfg = lm_shape_config(arch, shape, multi_pod)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -249,14 +321,14 @@ def make_lm_prefill(arch: ArchSpec, shape: ShapeSpec, device=None, max_len=None)
     return step
 
 
-def make_lm_decode(arch: ArchSpec, shape: ShapeSpec, device=None):
+def make_lm_decode(arch: ArchSpec, shape: ShapeSpec, device=None, multi_pod: bool = False):
     """``step(model, batch) -> (logits [B, V], cache)``: one
     :func:`tfm.decode_step` of ``batch["token"]`` against ``batch["cache"]``
     at ``cache_len = S - 1`` (S the shape's length), on ``device`` (None:
     the card); the new k/v are committed in place at slot S - 1 and the
     same cache returned (the reference's ``dynamic_update_slice`` on a
     donated buffer)."""
-    cfg = lm_shape_config(arch, shape)
+    cfg = lm_shape_config(arch, shape, multi_pod)
     dev = resolve_device(device)
     S = shape.seq_len
 
@@ -264,8 +336,7 @@ def make_lm_decode(arch: ArchSpec, shape: ShapeSpec, device=None):
     def step(model: tfm.Transformer, batch):
         cache = batch["cache"]
         logits, (knew, vnew) = tfm.decode_step(model, cache, batch["token"].to(dev), S - 1, cfg)
-        cache["k"][:, :, S - 1] = knew[:, :, 0]
-        cache["v"][:, :, S - 1] = vnew[:, :, 0]
+        tfm.commit_kv(cache, knew, vnew, S - 1)
         return logits, cache
 
     return step
@@ -338,7 +409,7 @@ def topk_lower_index(x, k: int):
     rows = x.reshape(-1, n)
     v, i = torch.topk(rows, min(k + 1, n), dim=-1)
     vals, idx = v[:, :k], i[:, :k]
-    if n > k:
+    if n > k and not rows.is_meta:  # meta tensors (the dry-run) hold no values, no ties
         tied = torch.nonzero(v[:, k] == v[:, k - 1]).squeeze(1)
         if tied.numel():
             tv, ti = _topk_at_tied_kth(rows[tied], k)
@@ -445,14 +516,15 @@ def make_recsys_step(arch: ArchSpec, shape: ShapeSpec, opt_cfg: AdamWConfig | No
 
     @torch.no_grad()
     def step(model: b4r.Bert4Rec, batch):
-        ids = batch["item_ids"].to(dev).reshape(B // user_chunk, user_chunk, cfg.seq_len)
-        ctx = batch["context_ids"].to(dev).reshape(B // user_chunk, user_chunk, cfg.n_context)
+        n = B // user_chunk
+        users = batch["item_ids"].to(dev)
+        ids, ctx = row_chunks(users, n), row_chunks(batch["context_ids"].to(dev), n)
         vals, idxs = [], []
         for i, c in zip(ids, ctx):
             v, ix = sharded_topk(b4r.serve_scores(model, i, c), k=100)
             vals.append(v)
             idxs.append(ix)
-        return torch.cat(vals), torch.cat(idxs)
+        return cat_rows(vals, users), cat_rows(idxs, users)
 
     return step
 
@@ -463,3 +535,96 @@ def default_opt_cfg(arch: ArchSpec) -> AdamWConfig:
     if arch.family == "lm" and arch.config.param_count() > 100e9:
         return AdamWConfig(moment_dtype=torch.bfloat16)
     return AdamWConfig()
+
+
+# --------------------------------------------------------------- assembly
+
+
+def _p(rules: dict, *logical) -> PSpec:
+    """Resolve logical axis names to a :class:`PSpec` under ``rules``."""
+    return PSpec(*resolve(logical, rules))
+
+
+@dataclasses.dataclass
+class BuiltStep:
+    """One (arch, shape) step laid out for a mesh, the reference's
+    ``BuiltStep`` in torch's terms. ``fn`` is the port's step under
+    ``rules``: ``fn(model, opt, batch)`` for the train kinds (the model and
+    the optimizer hold ``arg_specs[0]`` and ``arg_specs[1]`` and are updated
+    in place), ``fn(model, batch)`` for the serving kinds. ``arg_specs``:
+    the argument trees as ``meta`` tensors in call order (parameters,
+    optimizer state, batch); ``arg_pspecs`` / ``out_pspecs``: their
+    placements as :class:`PSpec` trees; ``donate``: the arguments a step
+    updates in place (the model and optimizer state; decode's cache)."""
+    fn: Any
+    arg_specs: tuple
+    arg_pspecs: tuple
+    out_pspecs: Any
+    donate: tuple
+    kind: str
+    rules: dict
+
+
+def build_step(arch: ArchSpec, shape: ShapeSpec, *, multi_pod: bool = False,
+               opt_cfg: AdamWConfig | None = None, unroll: bool = False,
+               device=None, rules: dict | None = None) -> BuiltStep:
+    """The reference's ``build_step``: the step of ``arch`` at ``shape`` on
+    ``device`` (None: the card; the dry-run passes ``"meta"``), its argument
+    templates and placements under ``rules`` (default :func:`arch_rules`;
+    the dry-run's calibration passes the rules of the run it is held to).
+    ``unroll`` is accepted and changes nothing (the port's loops are Python
+    loops)."""
+    del unroll
+    opt_cfg = opt_cfg or default_opt_cfg(arch)
+    rules = arch_rules(arch, shape, multi_pod) if rules is None else rules
+    out_pspecs = None
+    donate: tuple = ()
+    metrics_ps = {"loss": PSpec(), "grad_norm": PSpec()}
+    if arch.family == "lm":
+        inputs = lm_input_specs(arch, shape)
+        if shape.kind == "train":
+            p_t, o_t = lm_state_specs(arch, opt_cfg)
+            fn = make_lm_train_step(arch, shape, opt_cfg, device, multi_pod)
+            trees = (p_t, o_t, inputs)
+            out_pspecs = (pspecs(p_t, rules), pspecs(o_t, rules), metrics_ps)
+            donate = (0, 1)
+        elif shape.kind == "prefill":
+            p_t = tfm.param_specs(arch.config)
+            fn = make_lm_prefill(arch, shape, device, multi_pod=multi_pod)
+            trees = (p_t, inputs)
+            cache_t = lm_input_specs(arch, dataclasses.replace(shape, kind="decode"))["cache"]
+            out_pspecs = (pspecs(cache_t, rules), _p(rules, "dp", "vocab"))
+        else:
+            p_t = tfm.param_specs(arch.config)
+            fn = make_lm_decode(arch, shape, device, multi_pod)
+            trees = (p_t, inputs)
+            out_pspecs = (_p(rules, "cache_batch", "vocab"), pspecs(inputs["cache"], rules))
+            donate = (1,)
+    elif arch.family == "gnn":
+        p_t, o_t = gnn_state_specs(arch, shape, opt_cfg)
+        inputs = gnn_input_specs(arch, shape)
+        fn = make_gnn_train_step(arch, shape, opt_cfg, device)
+        trees = (p_t, o_t, inputs)
+        out_pspecs = (pspecs(p_t, rules), pspecs(o_t, rules), metrics_ps)
+        donate = (0, 1)
+    else:
+        inputs = recsys_input_specs(arch, shape)
+        fn = make_recsys_step(arch, shape, opt_cfg, device)
+        if shape.kind == "train":
+            p_t, o_t = recsys_state_specs(arch, opt_cfg)
+            trees = (p_t, o_t, inputs)
+            out_pspecs = (pspecs(p_t, rules), pspecs(o_t, rules), metrics_ps)
+            donate = (0, 1)
+        else:
+            trees = (b4r.param_specs(arch.config), inputs)
+            out_pspecs = (_p(rules, "dp", None), _p(rules, "dp", None))
+
+    def wrapped(*args):
+        with sharding_rules(rules):
+            return fn(*args)
+
+    return BuiltStep(
+        fn=wrapped, arg_specs=tuple(abstract_params(t) for t in trees),
+        arg_pspecs=tuple(pspecs(t, rules) for t in trees), out_pspecs=out_pspecs,
+        donate=donate, kind=shape.kind, rules=rules,
+    )

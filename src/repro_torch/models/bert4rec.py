@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.embedding import embedding_bag, take_rows
 from repro_torch.models.param import ArraySpec, build_params
 
@@ -148,8 +149,9 @@ def score_candidates(model: Bert4Rec, item_ids, context_ids, candidates):
 
     candidates int [n_cand] -> float32 scores [B, n_cand].
     """
-    h = encode(model, item_ids, context_ids)[:, -1]  # [B, d]
-    cand = take_rows(model.items, candidates)  # [n_cand, d]
+    h = constrain(encode(model, item_ids, context_ids)[:, -1], "dp", None)  # [B, d]
+    # rows of a row-split table are partial sums: reduced onto the candidates' split
+    cand = constrain(take_rows(model.items, candidates), "rows", None)  # [n_cand, d]
     return h.float() @ cand.float().T
 
 

@@ -17,13 +17,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.types import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, zeros
 from repro_torch.models.gnn_common import (
     GraphBatch,
+    edge_chunks,
     masked_mse,
     mlp_apply,
     mlp_specs,
     segment_sum,
+    take_nodes,
 )
 from repro_torch.models.param import build_params
 
@@ -61,13 +63,13 @@ def _layer(lp, h, x, batch: GraphBatch, cfg: EGNNConfig):
     chunk = cfg.edge_chunk or E
     assert E % chunk == 0
     nc = E // chunk
-    m_i = torch.zeros((batch.n, cfg.d_hidden), dtype=cfg.dtype, device=h.device)
-    xv_i = torch.zeros((batch.n, 3), dtype=cfg.dtype, device=h.device)
-    cnt = torch.zeros((batch.n,), dtype=cfg.dtype, device=h.device)
-    for s, d_, mk in zip(src.reshape(nc, chunk), dst.reshape(nc, chunk), emask.reshape(nc, chunk)):
-        rel = x.index_select(0, d_) - x.index_select(0, s)  # [c, 3] (x_i - x_j with i=dst)
+    m_i = zeros((batch.n, cfg.d_hidden), cfg.dtype, h.device, "nodes", None)
+    xv_i = zeros((batch.n, 3), cfg.dtype, h.device, "nodes", None)
+    cnt = zeros((batch.n,), cfg.dtype, h.device, "nodes")
+    for s, d_, mk in zip(edge_chunks(src, nc), edge_chunks(dst, nc), edge_chunks(emask, nc)):
+        rel = take_nodes(x, d_) - take_nodes(x, s)  # [c, 3] (x_i - x_j with i=dst)
         dist2 = (rel * rel).sum(-1, keepdim=True)
-        m = mlp_apply(lp.phi_e, torch.cat([h.index_select(0, d_), h.index_select(0, s), dist2], -1))
+        m = mlp_apply(lp.phi_e, torch.cat([take_nodes(h, d_), take_nodes(h, s), dist2], -1))
         m = torch.where(mk[:, None], m, 0)
         w = mlp_apply(lp.phi_x, m)  # [c, 1]
         xv = torch.where(mk[:, None], rel * torch.tanh(w), 0)

@@ -22,14 +22,25 @@ package's ``repro.models.equiformer_v2``; what differs:
   ``index_copy`` into zeros (autograd holds), and its ``.at[d].max`` from
   -inf a ``scatter_reduce(..., "amax", include_self=True)``;
 * each chunk's two passes run under ``torch.utils.checkpoint``
-  (``use_reentrant=False``) as the reference's run under ``jax.checkpoint``;
-  pass 2's partial sums are added as they come (a running sum saves nothing
-  under autograd) where the reference stacks them;
+  (``use_reentrant=False``) as the reference's run under ``jax.checkpoint``,
+  but pass 2's segment sums over the destinations are taken outside it (a
+  segment sum saves only its ids, and the backward pass then recomputes
+  no [N, n_coef, C] sum); the chunks' sums are added as they come (a
+  running sum saves nothing under autograd) where the reference stacks
+  them;
 * ``src_blocked`` reads ``X[s]``'s own rows: chunk i gathers from node block
   [i * Nb, min((i + 1) * Nb, N)). The reference slices the block with
   ``dynamic_slice_in_dim``, which clamps its start to N - Nb, but indexes it
   from the unclamped start, so when N is not a multiple of the number of
-  chunks its last chunk reads other rows (ROADMAP.md §3).
+  chunks its last chunk reads other rows (ROADMAP.md §3);
+* on a mesh (edges split over some mesh dimensions) chunk i is the i-th
+  part of each rank's edges (``gnn_common.edge_chunks``: no edge moves),
+  so a sharded batch keeps the ``src_blocked`` contract rank by rank: the
+  i-th part of every rank's edges has its sources in node block i. Each
+  rank gathers that block alone, and each chunk's partial sums are reduced
+  onto the nodes' layout at once, as the reference constrains them; pass
+  1's max over the ranks sends its gradient only to the edges at the
+  global max.
 """
 from __future__ import annotations
 
@@ -40,12 +51,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, on_mesh, row_layout, use_mesh, zeros
 from repro_torch.models.gnn_common import (
     GraphBatch,
+    edge_chunks,
     masked_mse,
     mlp_apply,
     mlp_specs,
@@ -177,6 +191,11 @@ def _zrot(X, phi, t: _Tables, inverse=False):
     return torch.where(t.is0, X, c * X + t.msign * s * Xp)
 
 
+def _sub(w: dict, prefix: str) -> dict:
+    """The entries of the flat parameter dict ``w`` under ``prefix``."""
+    return {k[len(prefix) + 1:]: v for k, v in w.items() if k.startswith(prefix + ".")}
+
+
 def _layer(lp, X, batch: GraphBatch, cfg: EqV2Config, t: _Tables):
     N, n_coef, C = X.shape
     E = batch.e
@@ -187,36 +206,39 @@ def _layer(lp, X, batch: GraphBatch, cfg: EqV2Config, t: _Tables):
     if cfg.src_blocked and (nc - 1) * Nb >= N:
         raise ValueError(f"src_blocked: {nc} chunks leave the last node block of "
                          f"{N} nodes (blocks of {Nb}) empty")
-    chunks = list(zip(range(nc), batch.src.reshape(nc, chunk), batch.dst.reshape(nc, chunk),
-                      batch.edge_mask.reshape(nc, chunk)))
+    sharded = isinstance(batch.src, DTensor)
+    chunks = list(zip(range(nc), edge_chunks(batch.src, nc), edge_chunks(batch.dst, nc),
+                      edge_chunks(batch.edge_mask, nc)))
+    names, wv = zip(*lp.named_parameters())
 
-    def msg_chunk(X, i, s, d_):
-        rel = batch.coords.index_select(0, d_) - batch.coords.index_select(0, s)  # [c, 3]
+    def msg_chunk(X, x0, coords, w, i, s, d_):
+        """Chunk i's messages and logits; ``X`` holds the node rows from
+        ``x0`` on (all of them, or, on a mesh, node block i)."""
+        rel = coords.index_select(0, d_) - coords.index_select(0, s)  # [c, 3]
         dist = torch.linalg.vector_norm(rel, dim=-1) + 1e-9
         phi = torch.atan2(rel[:, 1], rel[:, 0])
         rb = _radial_basis(dist, t.mu, cfg.n_radial)  # [c, R]
-        rmod = mlp_apply(lp.radial, rb)  # [c, 2*n_m]
+        rmod = mlp_apply(_sub(w, "radial"), rb)  # [c, 2*n_m]
+        rows = s
         if cfg.src_blocked:
             # chunk i's sources live in node block i (pipeline contract):
             # gather from that block only, at X[s]'s own rows
             lo = i * Nb
-            hi = min(lo + Nb, N)
-            Xs = X.index_select(0, s.clamp(lo, hi - 1))
-        else:
-            Xs = X.index_select(0, s)  # [c, n_coef, C]
+            rows = s.clamp(lo, min(lo + Nb, N) - 1)
+        Xs = X.index_select(0, rows - x0 if x0 else rows)  # [c, n_coef, C]
         Xs = constrain(Xs, "edges", None, None)
         Xr = _zrot(Xs, phi, t)  # align azimuth (exact)
         # eSCN SO(2) conv: m=0 block real matmul; m>0: stacked (m, -m) 2C vec
         X0 = Xr.index_select(1, t.idx0)  # [c, l_max+1, C]
-        parts = [torch.einsum("clk,kj->clj", X0, lp.so2_w0) * rmod[:, None, 0:1]]
+        parts = [torch.einsum("clk,kj->clj", X0, w["so2_w0"]) * rmod[:, None, 0:1]]
         for m, (idx_p, idx_n) in enumerate(t.idx_pm, start=1):
             v = torch.cat([Xr.index_select(1, idx_p), Xr.index_select(1, idx_n)], dim=-1)
-            y = torch.einsum("cld,de->cle", v, lp.so2_w[m]) * rmod[:, None, 2 * m : 2 * m + 1]
+            y = torch.einsum("cld,de->cle", v, w["so2_w"][m]) * rmod[:, None, 2 * m : 2 * m + 1]
             parts.extend(torch.split(y, C, dim=-1))
         # components with |m| > m_max stay zero (the eSCN m-truncation)
         out = Xr.new_zeros(Xr.shape).index_copy(1, t.written, torch.cat(parts, dim=1))
         # attention logits from invariant channel
-        logits = mlp_apply(lp.attn, out[:, 0, :])  # [c, H]
+        logits = mlp_apply(_sub(w, "attn"), out[:, 0, :])  # [c, H]
         out = _zrot(out, phi, t, inverse=True)
         return out, logits
 
@@ -224,39 +246,183 @@ def _layer(lp, X, batch: GraphBatch, cfg: EqV2Config, t: _Tables):
     # runs again in the backward pass, after this layer has rebound X.
     # pass 1: per-chunk edge max for a numerically stable edge softmax,
     # maxed over the chunks (the gradient flows through it, as in JAX)
-    def pass1(X, i, s, d_, mk):
-        _, logits = msg_chunk(X, i, s, d_)
+    def pass1(X, x0, coords, i, s, d_, mk, *wv):
+        _, logits = msg_chunk(X, x0, coords, dict(zip(names, wv)), i, s, d_)
         logits = torch.where(mk[:, None], logits, -torch.inf)
         init = logits.new_full((N, cfg.n_heads), -torch.inf)
         idx = d_.long()[:, None].expand(-1, cfg.n_heads)
-        return init.scatter_reduce(0, idx, logits, "amax", include_self=True)
+        mx = init.scatter_reduce(0, idx, logits, "amax", include_self=True)
+        if not sharded:
+            return mx
+        with torch.no_grad():  # this rank's edges at its max
+            count = torch.zeros_like(mx).scatter_add_(
+                0, idx, (logits == mx.gather(0, idx)).to(mx.dtype))
+        return _EdgeMax.apply(mx, count, batch.src.device_mesh, _split_dims(batch.src))
 
-    mx = torch.stack([checkpoint(pass1, X, *c, use_reentrant=False) for c in chunks]).amax(0)
-    mx = torch.where(torch.isfinite(mx), mx, 0.0)
-
-    def pass2(X, mx, i, s, d_, mk):
-        out, logits = msg_chunk(X, i, s, d_)
+    # pass 2: each edge's weight and weighted value; their sums over the
+    # destinations are taken outside the checkpoint (a segment sum saves
+    # only its ids), so the backward pass recomputes no [N, ...] sum
+    def pass2(X, x0, mx, coords, i, s, d_, mk, *wv):
+        out, logits = msg_chunk(X, x0, coords, dict(zip(names, wv)), i, s, d_)
         w = torch.exp(logits - mx.index_select(0, d_))  # [c, H]
         w = torch.where(mk[:, None], w, 0.0)
-        # value mixing per head, then weight and scatter
-        vh = torch.einsum("cnk,hkj->cnhj", out, lp.val_mix)  # [c, n_coef, H, C]
-        vw = (vh * w[:, None, :, None]).sum(dim=2)  # [c, n_coef, C]
-        return constrain(segment_sum(vw, d_, N), "nodes", None, None), segment_sum(w, d_, N)
+        # value mixing per head, then weight
+        vh = torch.einsum("cnk,hkj->cnhj", out, dict(zip(names, wv))["val_mix"])  # [c, n_coef, H, C]
+        return (vh * w[:, None, :, None]).sum(dim=2), w  # [c, n_coef, C], [c, H]
 
-    acc = z = 0
+    coords = batch.coords
+    if sharded:  # each rank's edges against node block i (or all nodes)
+        block = (lambda i: (i * Nb, min(i * Nb + Nb, N))) if cfg.src_blocked else None
+        p1, p2 = _edge_local(batch.src, pass1, pass2, len(wv), block)
+    else:
+        p1 = lambda X, *rest: pass1(X, 0, *rest)
+        p2 = lambda X, *rest: pass2(X, 0, *rest)
+    # each chunk's max laid out on the nodes (the max over the chunks saves
+    # its stacked input for the backward pass)
+    mx = torch.stack([constrain(checkpoint(p1, X, coords, *c, *wv, use_reentrant=False),
+                                "nodes", None) for c in chunks]).amax(0)
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    acc = z = None
     for c in chunks:
-        acc_p, z_p = checkpoint(pass2, X, mx, *c, use_reentrant=False)
-        acc, z = acc + acc_p, z + z_p
+        vw, w = checkpoint(p2, X, mx, coords, *c, *wv, use_reentrant=False)
+        d_ = c[2]
+        # each chunk's sums laid out on the nodes at once, as the reference
+        # constrains them
+        acc_p = _node_sums(vw, d_, N, cfg.l_max + 1)
+        z_p = constrain(segment_sum(w, d_, N), "nodes", None)
+        acc, z = (acc_p, z_p) if acc is None else (acc + acc_p, z + z_p)
     agg = acc / torch.clamp(z.sum(-1), min=1e-9)[:, None, None]
     X = X + agg
     # gated nonlinearity: scalars gate each l block
     gates = torch.sigmoid(mlp_apply(lp.gate, X[:, 0, :]))  # [N, (l_max+1)*C]
-    gates = gates.reshape(N, cfg.l_max + 1, C).index_select(1, t.ls)
+    gates = _per_coefficient(gates.reshape(N, cfg.l_max + 1, C), t.ls)
     ff = F.silu(X[:, 0, :] @ lp.ffn_w1) @ lp.ffn_w2
     X = X * gates
     X = torch.cat([X[:, :1, :] + ff[:, None, :], X[:, 1:, :]], dim=1)
     X = _equiv_layernorm(X, lp.ln_scale)
     return constrain(torch.where(batch.node_mask[:, None, None], X, 0), "nodes", None, None)
+
+
+def _per_coefficient(g, ls):
+    """``g [N, l_max+1, C]`` spread to each coefficient's l: ``g[:, ls]``; on
+    a DTensor split over the nodes, on each rank's rows (its backward, an
+    ``index_add``, has no DTensor rule on every torch)."""
+    if not isinstance(g, DTensor):
+        return g.index_select(1, ls)
+    place = row_layout(g)
+    return local_map(lambda gl: gl.index_select(1, ls), out_placements=place,
+                     in_placements=(place,), device_mesh=g.device_mesh)(g)
+
+
+def _node_sums(vw, dst, n: int, groups: int):
+    """``segment_sum(vw, dst, n)`` [n, n_coef, C] laid out on the nodes.
+    On a mesh each rank's sum over its own edges is a whole [n, ...] block
+    before it is reduced onto the nodes: there it is taken ``groups``
+    slices of the coefficients at a time (the whole block is 61 GB at
+    ogb_products), and the slices joined on each rank's rows."""
+    if not isinstance(vw, DTensor):
+        return constrain(segment_sum(vw, dst, n), "nodes", None, None)
+    step = -(-vw.shape[1] // groups)
+    return torch.cat([constrain(segment_sum(vw[:, j:j + step], dst, n), "nodes", None, None)
+                      for j in range(0, vw.shape[1], step)], dim=1)
+
+
+def _split_dims(t: DTensor) -> list:
+    """The mesh dimensions that split ``t``'s rows."""
+    return [d for d, p in enumerate(row_layout(t)) if p.is_shard()]
+
+
+class _EdgeMax(torch.autograd.Function):
+    """Per node and head, the max over the ranks of each rank's edge max
+    ``mx`` (``count`` of its edges at it), over the mesh dimensions ``dims``.
+    The gradient goes to the ranks that hold the max, each its share of the
+    edges at it (its ``count`` over their sum): spread evenly over a rank's
+    edges by the local max's backward, every tied edge of the chunk gets an
+    equal part, as jax splits the gradient of a scatter max."""
+
+    @staticmethod
+    def forward(ctx, mx, count, mesh, dims):
+        from torch.distributed import _functional_collectives as funcol
+
+        def across(x, op):
+            for d in dims:
+                x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, d)))
+            return x
+
+        top = across(mx, "max")
+        mine = torch.where(mx == top, count, 0.0)
+        ctx.save_for_backward(mine / across(mine, "sum").clamp(min=1.0))
+        return top
+
+    @staticmethod
+    def backward(ctx, g):
+        (share,) = ctx.saved_tensors
+        return g * share, None, None, None
+
+
+def _node_block(X: DTensor, lo: int, hi: int) -> DTensor:
+    """Rows [lo, hi) of the node tensor ``X`` (rows split over some mesh
+    dimensions, or whole), replicated: each rank puts its own rows of the
+    block in place in zeros, and the partial blocks are summed (never more
+    than the block is gathered). The gradient goes back to each rank's rows."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, place = X.device_mesh, row_layout(X)
+    (n, *_), (off, *_) = compute_local_shape_and_global_offset(X.shape, mesh, place)
+    a, b = max(lo, off), min(hi, off + n)
+
+    def body(xl):
+        mine = xl[a - off:b - off] if a < b else xl[:0]
+        before = a - lo if a < b else hi - lo
+        return F.pad(mine, (0, 0) * (xl.dim() - 1) + (before, hi - lo - before - mine.shape[0]))
+
+    part = local_map(body, out_placements=[Partial() if p.is_shard() else Replicate()
+                                           for p in place],
+                     in_placements=(place,), device_mesh=mesh)(X)
+    return part.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def _edge_local(src, pass1, pass2, n_w: int, block):
+    """The two passes over DTensors: on each rank's edges through
+    ``local_map``, against node block i (``block(i)``: its rows; None: all
+    the nodes) gathered inside them, with the max and the coordinates whole
+    (a checkpointed pass saves the split X, not the gathered rows). Pass 1's
+    max is reduced across the ranks inside it (:class:`_EdgeMax`); pass 2's
+    per-edge weights and values stay on each rank's edges."""
+    mesh, place = src.device_mesh, row_layout(src)
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate() for p in place]
+
+    def local(fn):
+        def run(*args):
+            with use_mesh(None):  # the bodies' constraints place nothing
+                return fn(*args)
+        return run
+
+    edge_in = (None, place, place, place)  # i, s, d, mask
+    p1 = local_map(local(pass1), out_placements=whole,
+                   in_placements=(whole, None, whole, *edge_in, *[whole] * n_w),
+                   in_grad_placements=(grad, None, grad, *edge_in, *[grad] * n_w),
+                   device_mesh=mesh)
+    p2 = local_map(local(pass2), out_placements=(place, place),
+                   in_placements=(whole, None, whole, whole, *edge_in, *[whole] * n_w),
+                   in_grad_placements=(grad, None, grad, grad, *edge_in, *[grad] * n_w),
+                   device_mesh=mesh)
+    gather = lambda t: on_mesh(t, mesh).redistribute(mesh, whole)
+
+    def rows(X, i):
+        if block is None:
+            return gather(X), 0
+        lo, hi = block(i)
+        return _node_block(on_mesh(X, mesh), lo, hi), lo
+
+    def pass1_sharded(X, coords, i, *rest):
+        return p1(*rows(X, i), gather(coords), i, *rest)
+
+    def pass2_sharded(X, mx, coords, i, *rest):
+        return p2(*rows(X, i), gather(mx), gather(coords), i, *rest)
+
+    return pass1_sharded, pass2_sharded
 
 
 class EquiformerV2(nn.Module):
@@ -271,8 +437,8 @@ class EquiformerV2(nn.Module):
         cfg = self.cfg
         t = _Tables(cfg, batch.node_feats.device)
         h0 = mlp_apply(self.embed_scalar, batch.node_feats.to(cfg.dtype))
-        X = torch.cat([h0[:, None, :], h0.new_zeros((batch.n, cfg.n_coef - 1, cfg.d_hidden))],
-                      dim=1)
+        X = torch.cat([h0[:, None, :], zeros((batch.n, cfg.n_coef - 1, cfg.d_hidden), h0.dtype,
+                                             h0.device, "nodes", None, None)], dim=1)
         X = torch.where(batch.node_mask[:, None, None], X, 0)
         for lp in self.layers:
             X = _layer(lp, X, batch, cfg, t)

@@ -21,6 +21,7 @@ from repro_torch.models.gnn_common import (
     mlp_apply,
     mlp_specs,
     segment_sum,
+    take_nodes,
 )
 from repro_torch.models.param import ArraySpec, build_params
 
@@ -64,7 +65,7 @@ class GIN(nn.Module):
         h = torch.where(node, h, 0)
         for k in range(cfg.n_layers):
             agg = chunked_edge_aggregate(
-                lambda s, d, m: h.index_select(0, s),
+                lambda s, d, m: take_nodes(h, s),
                 batch.src, batch.dst, batch.edge_mask, batch.n,
                 cfg.d_hidden, cfg.edge_chunk, cfg.dtype,
             )

@@ -18,7 +18,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import on_mesh, row_chunks as edge_chunks, row_layout, zeros
 from repro_torch.models.param import ArraySpec
 
 
@@ -66,8 +69,8 @@ def mlp_specs(name_dims, dtype=torch.float32, final_zeros: bool = False):
 def mlp_apply(params, x, act=F.silu, layernorm: bool = False, eps=1e-5):
     """``x @ w0 + b0``, ``act``, ... (no act after the last layer), then a
     layernorm without parameters. ``params``: a module holding ``w{i}`` /
-    ``b{i}`` (:func:`mlp_specs`)."""
-    p = dict(params.named_parameters(recurse=False))
+    ``b{i}`` (:func:`mlp_specs`), or a dict of them."""
+    p = dict(params) if isinstance(params, dict) else dict(params.named_parameters(recurse=False))
     n = len([k for k in p if k.startswith("w")])
     for i in range(n):
         x = x @ p[f"w{i}"] + p[f"b{i}"]
@@ -99,8 +102,32 @@ class _SegmentSum(torch.autograd.Function):
 
 def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``jax.ops.segment_sum``: an ``index_add`` into zeros (out of place
-    for autograd; the gradient of ``data`` is ``grad[ids]``)."""
-    return _SegmentSum.apply(data, ids, num_segments)
+    for autograd; the gradient of ``data`` is ``grad[ids]``). On DTensors
+    whose rows (edges) are split over some mesh dimensions, each rank sums
+    its own rows into a whole [num_segments, ...] block: the result is a
+    partial sum over those dimensions (the caller's layout reduces it)."""
+    if not isinstance(ids, DTensor):
+        return _SegmentSum.apply(data, ids, num_segments)
+    place = row_layout(ids)
+    out = [Partial() if p.is_shard() else Replicate() for p in place]
+    return local_map(lambda dl, il: _SegmentSum.apply(dl, il, num_segments), out_placements=out,
+                     in_placements=(place, place), device_mesh=ids.device_mesh)(data, ids)
+
+
+def take_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(0, idx)``: the rows of the node tensor ``x`` at the
+    edges' node ids ``idx``. On a DTensor ``idx`` (edges split over some mesh
+    dimensions) ``x`` is gathered whole and each rank reads its edges' rows;
+    the gradient of ``x`` is a partial sum over those dimensions."""
+    if not isinstance(idx, DTensor):
+        return x.index_select(0, idx)
+    mesh, place = idx.device_mesh, row_layout(idx)
+    whole = [Replicate()] * mesh.ndim
+    x = on_mesh(x, mesh).redistribute(mesh, whole)
+    grad = [Partial() if p.is_shard() else Replicate() for p in place]
+    return local_map(lambda xl, il: xl.index_select(0, il), out_placements=place,
+                     in_placements=(whole, place), in_grad_placements=(grad, place),
+                     device_mesh=mesh)(x, idx)
 
 
 def masked_mse(out, batch: GraphBatch, d_out: int) -> torch.Tensor:
@@ -125,9 +152,8 @@ def chunked_edge_aggregate(msg_fn, src, dst, edge_mask, n_nodes: int,
         return segment_sum(m, dst, n_nodes)
     assert E % edge_chunk == 0, (E, edge_chunk)
     nc = E // edge_chunk
-    acc = torch.zeros((n_nodes, out_dim), dtype=dtype, device=src.device)
-    for s, d, mk in zip(src.reshape(nc, edge_chunk), dst.reshape(nc, edge_chunk),
-                        edge_mask.reshape(nc, edge_chunk)):
+    acc = zeros((n_nodes, out_dim), dtype, src.device, "nodes", None)
+    for s, d, mk in zip(edge_chunks(src, nc), edge_chunks(dst, nc), edge_chunks(edge_mask, nc)):
         m = msg_fn(s, d, mk).masked_fill_(~mk[:, None], 0)
         acc = acc + segment_sum(m, d, n_nodes)
     return acc

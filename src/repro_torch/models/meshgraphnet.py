@@ -17,13 +17,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.types import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import cat_rows, constrain, zeros
 from repro_torch.models.gnn_common import (
     GraphBatch,
+    edge_chunks,
     masked_mse,
     mlp_apply,
     mlp_specs,
     segment_sum,
+    take_nodes,
 )
 from repro_torch.models.param import build_params
 
@@ -62,7 +64,7 @@ def _edge_feats(batch: GraphBatch, cfg: MGNConfig):
     never reaches a parameter."""
     if batch.edge_feats is not None:
         return batch.edge_feats.to(cfg.dtype)
-    rel = batch.coords.index_select(0, batch.dst) - batch.coords.index_select(0, batch.src)
+    rel = take_nodes(batch.coords, batch.dst) - take_nodes(batch.coords, batch.src)
     norm = torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
     return torch.cat([rel, norm], -1).to(cfg.dtype)
 
@@ -86,18 +88,18 @@ class MeshGraphNet(nn.Module):
         chunk = cfg.edge_chunk or E
         assert E % chunk == 0
         nc = E // chunk
-        chunks = list(zip(batch.src.reshape(nc, chunk), batch.dst.reshape(nc, chunk),
-                          batch.edge_mask.reshape(nc, chunk)))
+        chunks = list(zip(edge_chunks(batch.src, nc), edge_chunks(batch.dst, nc),
+                          edge_chunks(batch.edge_mask, nc)))
         for lp in self.layers:
-            agg = torch.zeros((batch.n, cfg.d_hidden), dtype=cfg.dtype, device=h.device)
+            agg = zeros((batch.n, cfg.d_hidden), cfg.dtype, h.device, "nodes", None)
             e_parts = []
-            for (s, d_, mk), ec in zip(chunks, e.reshape(nc, chunk, cfg.d_hidden)):
-                inp = torch.cat([ec, h.index_select(0, s), h.index_select(0, d_)], -1)
+            for (s, d_, mk), ec in zip(chunks, edge_chunks(e, nc)):
+                inp = torch.cat([ec, take_nodes(h, s), take_nodes(h, d_)], -1)
                 e_new = ec + mlp_apply(lp.edge_mlp, inp, layernorm=True)
                 e_new = torch.where(mk[:, None], e_new, 0)
                 agg = agg + segment_sum(e_new, d_, batch.n)
                 e_parts.append(e_new)
-            e = torch.cat(e_parts)
+            e = cat_rows(e_parts, e)
             h = h + mlp_apply(lp.node_mlp, torch.cat([h, agg], -1), layernorm=True)
             h = constrain(torch.where(node, h, 0), "nodes", None)
         return mlp_apply(self.dec, h)

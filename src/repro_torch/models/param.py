@@ -115,8 +115,11 @@ def build_params(module: nn.Module, spec_tree: dict, device, seed: int = 0,
     """:func:`materialize` then :func:`init_params` from ``generator``, by
     default a CPU generator seeded with ``seed``: a module built on the card
     and one built on the CPU from one seed hold the same values. Pass a
-    seeded ``torch.Generator("cuda")`` to draw on the card instead."""
+    seeded ``torch.Generator("cuda")`` to draw on the card instead. On the
+    ``meta`` device (the dry-run's templates) nothing is drawn."""
     materialize(module, spec_tree, device)
+    if torch.device(device).type == "meta":
+        return module
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
     return init_params(module, spec_tree, generator)

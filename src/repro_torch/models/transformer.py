@@ -41,6 +41,20 @@ is the head count there, which makes the attention scores of a published
 width ~190 wide and a deep model chaotic; ROADMAP.md §3). Parity tests
 carry the reference's weights across, so no computation differs.
 
+Under sharding rules (every parameter a DTensor on a mesh, the logical
+names of the production meshes; ``launch/steps.py::arch_rules``) the
+layouts are pinned where the reference's constraints and XLA's choices put
+them: the residual stream split as ``("dp", "model_seq", "model_d")``; the
+projections' inputs gathered whole and each weight's FSDP-split rows
+gathered, so q/k/v land on their heads (or, for replicated heads, on the
+sequence) and each model-axis partial sum is reduce-scattered back onto
+the stream; attention on each rank's (batch, head, query block) through
+``local_map``; products of a DTensor and a 2-d weight on each rank's shards
+(:func:`_sharded_matmul`); the MoE routing and combine on each rank's
+groups; the loss a vocabulary-parallel cross entropy; decode attention
+combined across the cache's split slots. The values are the unsharded
+ones (float32 sums in another order).
+
 Where autograd records (a training step), each layer, each attention
 query step and each loss chunk runs under ``torch.utils.checkpoint`` when
 ``remat`` is set, as the reference's ``jax.checkpoint`` does, and the
@@ -63,12 +77,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
-from repro_torch.distributed.sharding import constrain, replicated_like
+from repro_torch.distributed.sharding import (constrain, on_mesh, pin_grad, replicated_like,
+                                              zeros)
 from repro_torch.models.embedding import take_rows
 from repro_torch.models.param import ArraySpec, build_params
 
@@ -255,9 +270,53 @@ def _promote(*xs):
 
 
 def _matmul(a, b):
-    """``a @ b`` in the operands' common dtype (``jnp.einsum`` / ``@``)."""
+    """``a @ b`` in the operands' common dtype (``jnp.einsum`` / ``@``); a
+    DTensor ``a`` times a 2-d ``b`` through :func:`_sharded_matmul`."""
     a, b = _promote(a, b)
+    if isinstance(a, DTensor) and b.dim() == 2:
+        return _sharded_matmul(a, b)
     return torch.matmul(a, b)
+
+
+def _sharded_matmul(a: DTensor, b) -> DTensor:
+    """``a [..., K] @ b [K, N]`` with each rank multiplying its own shards
+    (``local_map``), ``b`` laid out to match ``a`` on each mesh dimension:
+    where ``a``'s rows are split, ``b`` is whole and the result's rows split
+    (``b``'s gradient a partial sum there); where ``a``'s K is split (or
+    ``a`` is whole and ``b``'s rows split: ``a`` is cut to match), ``b``'s
+    rows are split alike and the result is a partial sum; where ``a`` is
+    whole, ``b`` keeps its split columns (the result's columns split,
+    ``a``'s gradient a partial sum) or is whole. DTensor's own product
+    searches its strategies and redistributions at every call, which on a
+    3-d mesh with two split leading dimensions took minutes a layer."""
+    mesh = a.device_mesh
+    b = on_mesh(b, mesh)
+    last = a.dim() - 1
+    # a partial ``a`` is reduced; a whole ``a`` against ``b``'s split rows is
+    # cut along K (locally) to match them
+    want = [Replicate() if pa.is_partial() else
+            Shard(last) if pa.is_replicate() and pb.is_shard(0) else pa
+            for pa, pb in zip(a.placements, b.placements)]
+    if want != list(a.placements):
+        a = a.redistribute(mesh, want)
+    a_place = list(a.placements)
+    b_place, out, a_grad, b_grad = [], [], [], []
+    for pa, pb in zip(a_place, b.placements):
+        if pa.is_shard(last):
+            b_place.append(Shard(0)), out.append(Partial()), a_grad.append(pa)
+            b_grad.append(Shard(0))
+        elif pa.is_shard():
+            b_place.append(Replicate()), out.append(pa), a_grad.append(pa)
+            b_grad.append(Partial())
+        elif pb.is_shard(1):
+            b_place.append(pb), out.append(Shard(last)), a_grad.append(Partial())
+            b_grad.append(pb)
+        else:
+            b_place.append(Replicate()), out.append(Replicate()), a_grad.append(Replicate())
+            b_grad.append(Replicate())
+    b = b.redistribute(mesh, b_place)
+    return local_map(torch.matmul, out_placements=out, in_placements=(a_place, b_place),
+                     in_grad_placements=(a_grad, b_grad), device_mesh=mesh)(a, b)
 
 
 def _recording(*xs) -> bool:
@@ -352,14 +411,34 @@ def rope(x, positions, freqs):
     return out.to(x.dtype)
 
 
+def _glu(g, u, act):
+    """The gate ``g`` activated times the up half ``u``."""
+    gate = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+    return gate * u if _recording(gate, u) else gate.mul_(u)
+
+
 def _activate(h, act):
     """GLU gates (the gate half times the up half) or gelu; jax's ``gelu``
     is the tanh approximation."""
     if act in ("swiglu", "geglu"):
-        g, u = torch.chunk(h, 2, dim=-1)
-        gate = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
-        return gate * u if _recording(gate, u) else gate.mul_(u)
+        return _glu(*torch.chunk(h, 2, dim=-1), act)
     return F.gelu(h, approximate="tanh")
+
+
+def _up(x, w, act, hidden, w_names):
+    """``_activate(x @ w, act)``; ``w_names`` and ``hidden`` name the logical
+    axes of ``w`` (laid out so first) and of the result. Where the GLU's two
+    halves of ``w``'s columns are split over the mesh, each half is
+    multiplied apart (the weight's half gathered and split again): the
+    product's halves would otherwise be regathered, an activation-sized
+    all-gather, where this moves a weight's."""
+    w = constrain(w, *w_names)
+    if act in ("swiglu", "geglu") and isinstance(w, DTensor) and any(
+            p.is_shard(w.dim() - 1) for p in w.placements):
+        f = w.shape[-1] // 2
+        wg, wu = (constrain(w[..., sl], *w_names) for sl in (slice(0, f), slice(f, None)))
+        return _glu(constrain(_matmul(x, wg), *hidden), constrain(_matmul(x, wu), *hidden), act)
+    return _activate(constrain(_matmul(x, w), *hidden), act)
 
 
 def _attend(q, kT, vh, qpos, G: int):
@@ -382,17 +461,18 @@ def _attend(q, kT, vh, qpos, G: int):
     return o.reshape(B, Hk, G, n, D).permute(0, 3, 1, 2, 4).reshape(B, n, Hq, D).to(q.dtype)
 
 
-def attention(q, k, v, cfg: TransformerConfig):
+def attention(q, k, v, cfg: TransformerConfig, q0: int = 0):
     """Query-chunked causal attention; no [S, S] tensor.
 
-    q: [B, S, Hq, D], k/v: [B, S, Hk, D] with Hq = Hk * G. The reference's
-    schedule: chunks of ``attn_chunk`` queries, ``attn_par`` of them batched
-    into one product (chunk ``p * n_outer + i`` in step i), the steps in a
-    loop; each step's [B, Hk, G, par * c, S] float32 block of scores is the
-    only attention transient. Where ``attn_chunk`` does not divide S the
-    remainder runs as one short last chunk (see the module docstring).
-    Where autograd records and ``cfg.remat`` is set, each step is
-    checkpointed (the reference's per-step ``jax.checkpoint``).
+    q: [B, Sq, Hq, D] (query rows at positions ``q0 + j``), k/v: [B, S, Hk,
+    D] with Hq = Hk * G. The reference's schedule: chunks of ``attn_chunk``
+    queries, ``attn_par`` of them batched into one product (chunk ``p *
+    n_outer + i`` in step i), the steps in a loop; each step's [B, Hk, G,
+    par * c, S] float32 block of scores is the only attention transient.
+    Where ``attn_chunk`` does not divide Sq the remainder runs as one short
+    last chunk (see the module docstring). Where autograd records and
+    ``cfg.remat`` is set, each step is checkpointed (the reference's
+    per-step ``jax.checkpoint``).
     """
     if isinstance(q, DTensor):
         return _attention_sharded(q, k, v, cfg)
@@ -418,55 +498,67 @@ def attention(q, k, v, cfg: TransformerConfig):
     for i in range(n_outer):
         qpos = (rows + i * c).reshape(-1)  # [par * c]
         qi = main[:, :, i].reshape(B, par * c, Hq, D)
-        out[:, qpos] = step(qi, kT, vh, qpos, G)
+        out[:, qpos] = step(qi, kT, vh, qpos + q0, G)
     if S % c:  # ragged tail: one short chunk
         qpos = torch.arange(nq * c, S, device=dev)
-        out[:, nq * c:] = step(q[:, nq * c:], kT, vh, qpos, G)
+        out[:, nq * c:] = step(q[:, nq * c:], kT, vh, qpos + q0, G)
     return out
 
 
 def _attention_sharded(q, k, v, cfg: TransformerConfig):
     """:func:`attention` of DTensor operands, run on each rank's shard of
     them through ``local_map``: attention is local to a (sequence, head)
-    pair of the batch, so where q, k and v split only the batch and the heads
+    pair of the batch, so where q, k and v split the batch and the heads
     (evenly, alike), each rank's shard is a whole attention problem and the
     plain code runs on it unchanged (no communication; the values are the
     unsharded ones). The batched products would otherwise flatten two
-    sharded batch dimensions, which DTensor refuses. Raises ``ValueError``
-    for any other layout (a sharded sequence or head width, partial sums,
-    uneven head shards)."""
-    place = tuple(q.placements)
-    if tuple(k.placements) != place or tuple(v.placements) != place:
-        raise ValueError(f"attention: q, k, v placed {place}, {tuple(k.placements)}, "
-                         f"{tuple(v.placements)}; want them alike")
-    if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, 2)) for p in place):
-        raise ValueError(f"attention: placements {place}; only the batch and the heads split")
-    heads = math.prod(q.device_mesh.size(d) for d, p in enumerate(place) if p.is_shard(2))
+    sharded batch dimensions, which DTensor refuses. Where q also splits
+    its sequence (the sequence-parallel attention of replicated-head archs,
+    each rank a contiguous block of query rows), k and v are gathered whole
+    along the sequence (the reference's constraints on them) and each rank
+    attends its block, the reference's ``attn_par`` chunks shared out over
+    those mesh dimensions. Raises ``ValueError`` for any other layout (a
+    split head width, partial sums, uneven shards)."""
+    mesh, place = q.device_mesh, tuple(q.placements)
+    if not all(p.is_replicate() or (p.is_shard() and p.dim in (0, 1, 2)) for p in place):
+        raise ValueError(f"attention: placements {place}; only the batch, sequence and heads split")
+    kv_place = tuple(Replicate() if p.is_shard(1) else p for p in place)
+    if tuple(k.placements) != place and tuple(k.placements) != kv_place:
+        raise ValueError(f"attention: q placed {place}, k {tuple(k.placements)}")
+    if tuple(v.placements) != tuple(k.placements):
+        raise ValueError(f"attention: k placed {tuple(k.placements)}, v {tuple(v.placements)}")
+    k, v = (t.redistribute(mesh, kv_place) for t in (k, v))
+    heads = math.prod(mesh.size(d) for d, p in enumerate(place) if p.is_shard(2))
     if q.shape[2] % heads or k.shape[2] % heads:
         raise ValueError(f"attention: {q.shape[2]} and {k.shape[2]} heads over {heads} shards")
-    layout = list(place)  # a list: a tuple of placements reads as one per output
-    local = local_map(functools.partial(attention, cfg=cfg), out_placements=layout,
-                      in_placements=(layout, layout, layout), device_mesh=q.device_mesh)
+    seq = [d for d, p in enumerate(place) if p.is_shard(1)]
+    n_seq = math.prod(mesh.size(d) for d in seq)
+    if q.shape[1] % n_seq:
+        raise ValueError(f"attention: {q.shape[1]} positions over {n_seq} shards")
+    index = 0  # this rank's block of query rows, the mesh dimensions major to minor
+    for d in seq:
+        index = index * mesh.size(d) + mesh.get_local_rank(d)
+    local_cfg = dataclasses.replace(cfg, attn_par=max(1, cfg.attn_par // n_seq))
+    fn = functools.partial(attention, cfg=local_cfg, q0=index * (q.shape[1] // n_seq))
+    layout, kv_layout = list(place), list(kv_place)  # lists: a tuple reads as one per output
+    # each block of queries reads k and v whole: their gradients are partial
+    # sums over the mesh dimensions that split the queries
+    kv_grad = [Partial() if p.is_shard(1) else kp for p, kp in zip(place, kv_place)]
+    local = local_map(fn, out_placements=layout, in_placements=(layout, kv_layout, kv_layout),
+                      in_grad_placements=(layout, kv_grad, kv_grad), device_mesh=mesh)
     return local(q, k, v)
 
 
-def _moe_ffn(x, router_w, w1, w2, cfg: TransformerConfig):
-    """x: [T, d] -> [T, d]. Group-local capacity dispatch, as the reference:
-    tokens split into ``moe_groups`` groups, each (token, choice) pair given
-    the next free slot of its expert in token order (a one-hot cumsum), the
-    pairs past capacity C = ceil(Tl * k * cf / E) rounded up to 8 dropped
-    into an overflow row E * C; ``expert_fold`` copies of each expert's
-    tokens for the folded experts, their partial outputs summed. The
-    combine adds a token's k weighted outputs in choice order, in the
-    outputs' dtype (the reference's ``segment_sum`` on the CPU)."""
-    T, d = x.shape
+def _moe_dispatch(xg, router_w, cfg: TransformerConfig):
+    """Route the groups' tokens xg [G, Tl, d] -> (buf [G, E, C, d] in
+    ``param_dtype``, slot and keep [G, Tl*k], gate_f [G, Tl*k]): each
+    (token, choice) pair takes the next free slot of its expert in token
+    order (a one-hot cumsum), the pairs past capacity C dropped into an
+    overflow row E * C. Local to each group."""
+    G, Tl, d = xg.shape
     E, k = cfg.n_experts, cfg.top_k
-    G = max(1, min(cfg.moe_groups, T))
-    assert T % G == 0, (T, G)
-    Tl = T // G
     C = int(np.ceil(Tl * k * cfg.capacity_factor / E))
     C = ((C + 7) // 8) * 8
-    xg = constrain(x.reshape(G, Tl, d), "dp", None, None)
     logits = torch.matmul(xg.float(), router_w)  # [G, Tl, E]
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k: among equal probabilities the lower expert first
@@ -483,55 +575,126 @@ def _moe_ffn(x, router_w, w1, w2, cfg: TransformerConfig):
     xt = torch.where(keep[..., None], xt, 0)
     disp = xt.new_zeros(G, E * C + 1, d)
     disp.scatter_(1, slot[..., None].expand(-1, -1, d), xt)  # one pair per slot
-    buf = disp[:, : E * C].reshape(G, E, C, d).to(cfg.param_dtype)
-    Fo = cfg.expert_fold
-    if Fo > 1:  # every fold of an expert sees the same tokens
-        buf = buf.repeat_interleave(Fo, dim=1)  # [G, E*F, C, d]
-    buf = constrain(buf, "dp", "expert", None, None)
-    EF = buf.shape[1]
-    be = buf.permute(1, 0, 2, 3).reshape(EF, G * C, d)  # experts lead: one batched product
-    h = _matmul(be, w1)  # [E*F, G*C, f]
-    h = _activate(h, cfg.act)
-    out_buf = _matmul(h, w2).reshape(EF, G, C, d).permute(1, 0, 2, 3)  # [G, E*F, C, d]
+    return disp[:, : E * C].reshape(G, E, C, d).to(cfg.param_dtype), slot, keep, gate_f
+
+
+def _moe_combine(out_buf, slot, keep, gate_f, cfg: TransformerConfig):
+    """The experts' outputs out_buf [G, E*F, C, d] back to the tokens ->
+    [G, Tl, d]: the folds' partial outputs summed, then each token's k
+    weighted outputs added in choice order, in the outputs' dtype (the
+    reference's ``segment_sum`` on the CPU). Local to each group."""
+    G, EF, C, d = out_buf.shape
+    E, k, Fo = cfg.n_experts, cfg.top_k, cfg.expert_fold
     if Fo > 1:  # block-diagonal FFN decomposition: sum fold partials
         out_buf = out_buf.reshape(G, E, Fo, C, d).sum(2)
     out_flat = out_buf.reshape(G, E * C, d)
     picked = torch.gather(
         out_flat, 1, torch.clamp(slot, 0, E * C - 1)[..., None].expand(-1, -1, d))
     picked = torch.where(keep[..., None], picked, 0)
-    contrib = (picked * gate_f[..., None].to(picked.dtype)).reshape(G, Tl, k, d)
+    contrib = (picked * gate_f[..., None].to(picked.dtype)).reshape(G, slot.shape[1] // k, k, d)
     combined = contrib[:, :, 0]
     for j in range(1, k):
         combined = combined + contrib[:, :, j]
-    combined = constrain(combined, "dp", None, None)
+    return combined
+
+
+def _moe_ffn(x, router_w, w1, w2, cfg: TransformerConfig, batch: str = "dp"):
+    """x: [T, d] -> [T, d]. Group-local capacity dispatch, as the reference:
+    tokens split into ``moe_groups`` groups (the logical axis ``batch``),
+    routed by :func:`_moe_dispatch`, ``expert_fold`` copies of each expert's
+    tokens for the folded experts, the experts' FFNs as one product batched
+    over the experts (``expert`` split: EP; ``expert_mlp`` split: TP), and
+    :func:`_moe_combine`. Under rules the routing and the combine run on
+    each rank's groups (``local_map``), the buffer is cut to the rank's
+    experts, and the experts' outputs are gathered whole before the
+    combine (the reference's constraints)."""
+    T, d = x.shape
+    G = max(1, min(cfg.moe_groups, T))
+    assert T % G == 0, (T, G)
+    xg = constrain(x.reshape(G, T // G, d), batch, None, None)
+    if isinstance(xg, DTensor):
+        router_w = constrain(router_w, None, None)
+        group_place = list(xg.placements)
+        dispatch = functools.partial(_moe_dispatch, cfg=cfg)
+        buf, slot, keep, gate_f = local_map(
+            dispatch, out_placements=(group_place,) * 4,
+            in_placements=(group_place, [Replicate()] * xg.device_mesh.ndim),
+            in_grad_placements=(group_place, [Partial() if p.is_shard() else Replicate()
+                                              for p in group_place]),
+            device_mesh=xg.device_mesh)(xg, router_w)
+        w2 = constrain(w2, "expert", "expert_mlp", None)
+    else:
+        buf, slot, keep, gate_f = _moe_dispatch(xg, router_w, cfg)
+    C = buf.shape[2]
+    Fo = cfg.expert_fold
+    if Fo > 1:  # every fold of an expert sees the same tokens
+        buf = buf.repeat_interleave(Fo, dim=1)  # [G, E*F, C, d]
+    buf = constrain(buf, batch, "expert", None, None)
+    EF = buf.shape[1]
+    be = buf.permute(1, 0, 2, 3).reshape(EF, G * C, d)  # experts lead: one batched product
+    h = _up(be, w1, cfg.act, ("expert", batch, "expert_mlp"),
+            ("expert", None, "expert_mlp"))  # [E*F, G*C, f]
+    out = constrain(_matmul(h, w2), "expert", batch, None)
+    out_buf = out.reshape(EF, G, C, d).permute(1, 0, 2, 3)  # [G, E*F, C, d]
+    if isinstance(out_buf, DTensor):
+        # the combine gathers from a group-local buffer, whole over the experts
+        out_buf = constrain(out_buf, batch, None, None, None)
+        combine = functools.partial(_moe_combine, cfg=cfg)
+        group_place = list(out_buf.placements)
+        combined = local_map(combine, out_placements=group_place,
+                             in_placements=[group_place] * 4,
+                             device_mesh=out_buf.device_mesh)(out_buf, slot, keep, gate_f)
+    else:
+        combined = _moe_combine(out_buf, slot, keep, gate_f, cfg)
+    combined = constrain(combined, batch, None, None)
     return combined.reshape(T, d).to(x.dtype)
 
 
-def _qkv(h, lp, cfg: TransformerConfig, positions, freqs):
+def _qkv(h, lp, cfg: TransformerConfig, positions, freqs, lead=("dp", "model_seq")):
+    """q, k, v [B, S, heads, D] of h [B, S, d] (``lead``: the logical names of
+    its batch and sequence dimensions). Under rules each projection lands
+    on the attention layout: the heads (sharded-head archs) or the sequence
+    (replicated-head archs, sequence-parallel): h's features are gathered
+    and each weight's FSDP-split rows, so the product splits only the
+    batch, the sequence and the heads, and never an uneven head count."""
     B, S, d = h.shape
-    flat = h.reshape(B * S, d)
-    proj = lambda w: _matmul(flat, w.reshape(d, -1)).reshape(B, S, w.shape[1], w.shape[2])
-    q = rope(proj(lp["wq"]), positions, freqs)
-    kk = rope(proj(lp["wk"]), positions, freqs)
-    vv = proj(lp["wv"])
-    if cfg.attn_par > 1 and S > 1:
-        q = constrain(q, "dp", "model_seq", None, None)
-        kk = constrain(kk, "dp", "model_seq", None, None)
-        vv = constrain(vv, "dp", "model_seq", None, None)
-    return q, kk, vv
+    hf = constrain(h, *lead, None)
+
+    def proj(w, heads):
+        if isinstance(w, DTensor):
+            y = _matmul(hf, pin_grad(constrain(w, None, heads, None).reshape(d, -1)))
+        else:
+            y = _matmul(h.reshape(B * S, d), w.reshape(d, -1))
+        return constrain(y.reshape(B, S, w.shape[1], w.shape[2]), *lead, heads, None)
+
+    q = rope(proj(lp["wq"], "heads"), positions, freqs)
+    kk = rope(proj(lp["wk"], "kv_heads"), positions, freqs)
+    return q, kk, proj(lp["wv"], "kv_heads")
+
+
+#: the logical layout of the residual stream between and within layers
+_BOUNDARY = ("dp", "model_seq", "model_d")
+#: a decode step's: the batch, one position, the features
+_DECODE = ("cache_batch", None, "model_d")
 
 
 def _out_proj(attn, wo):
     """einsum("bshk,hkd->bsd", attn, wo)."""
     B, S, H, Dh = attn.shape
-    return _matmul(attn.reshape(B, S, H * Dh), wo.reshape(H * Dh, -1))
+    return _matmul(pin_grad(attn.reshape(B, S, H * Dh)), pin_grad(wo.reshape(H * Dh, -1)))
 
 
-def _ffn(h2, lp, cfg: TransformerConfig):
+def _ffn(h2, lp, cfg: TransformerConfig, lead=("dp", "model_seq")):
+    """The FFN of h2 [B, S, d] (``lead``: the logical names of its batch and
+    sequence dimensions). Under rules a dense FFN gathers h2's features and
+    splits its hidden units over ``mlp``; its output is a partial sum."""
     B, S, d = h2.shape
     if cfg.is_moe:
-        return _moe_ffn(h2.reshape(B * S, d), lp["router"], lp["w1"], lp["w2"], cfg).reshape(B, S, d)
-    return _matmul(_activate(_matmul(h2, lp["w1"]), cfg.act), lp["w2"])
+        h2 = constrain(h2, *lead, None)
+        return _moe_ffn(h2.reshape(B * S, d), lp["router"], lp["w1"], lp["w2"], cfg,
+                        lead[0]).reshape(B, S, d)
+    hid = _up(constrain(h2, *lead, None), lp["w1"], cfg.act, (*lead, "mlp"), (None, "mlp"))
+    return _matmul(hid, lp["w2"])
 
 
 def _layer(x, lp, cfg: TransformerConfig, positions, freqs):
@@ -541,23 +704,32 @@ def _layer(x, lp, cfg: TransformerConfig, positions, freqs):
     q, kk, vv = _qkv(h, lp, cfg, positions, freqs)
     ka, va = kk, vv
     if cfg.expand_kv and G > 1:
-        ka = kk.repeat_interleave(G, dim=2)  # [B, S, H, D]
-        va = vv.repeat_interleave(G, dim=2)
+        # [B, S, H, D], split over the heads as q is (a replicated k/v is
+        # cut locally)
+        ka = constrain(kk.repeat_interleave(G, dim=2), "dp", "model_seq", "heads", None)
+        va = constrain(vv.repeat_interleave(G, dim=2), "dp", "model_seq", "heads", None)
     attn = attention(q, ka, va, cfg)
     del q, ka, va
-    x = x + _out_proj(attn, lp["wo"]).to(x.dtype)
+    # each partial sum over the model axis is reduce-scattered onto the
+    # layer boundary's layout
+    x = x + constrain(_out_proj(attn, lp["wo"]), *_BOUNDARY).to(x.dtype)
     del attn
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(h2, lp, cfg).to(x.dtype), kk, vv
+    return x + constrain(_ffn(h2, lp, cfg), *_BOUNDARY).to(x.dtype), kk, vv
+
+
+def embed_rows(table, tokens, cfg: TransformerConfig):
+    """Embedding rows of ``tokens``; gemma's scale is a numpy float64, which
+    promotes the stream to float32 as in the reference. Under rules the
+    table's FSDP-sharded feature dimension is gathered, not the rows read."""
+    x = take_rows(constrain(table, "vocab", None), tokens)
+    if cfg.embed_scale:
+        x = x.float() * float(np.sqrt(cfg.d_model))
+    return x
 
 
 def _embed(model: Transformer, tokens):
-    """Embedding rows of ``tokens``; gemma's scale is a numpy float64, which
-    promotes the stream to float32 as in the reference."""
-    x = take_rows(model.embed, tokens)
-    if model.cfg.embed_scale:
-        x = x.float() * float(np.sqrt(model.cfg.d_model))
-    return x
+    return embed_rows(model.embed, tokens, model.cfg)
 
 
 def _layer_out(x, lp, cfg: TransformerConfig, positions, freqs):
@@ -577,10 +749,13 @@ def _run_layers(model: Transformer, x, positions, cfg: TransformerConfig, cache=
         else:
             x, kk, vv = _layer(x, lp, cfg, positions, model.rope_freqs)
             if cache is not None:
-                cache["k"][i, :, :S] = kk
-                cache["v"][i, :, :S] = vv
+                for c, new in ((cache["k"][i], kk), (cache["v"][i], vv)):
+                    if isinstance(c, DTensor):  # the whole layer: placed as its cache
+                        c.copy_(new.to(c.dtype).redistribute(c.device_mesh, c.placements))
+                    else:
+                        c[:, :S] = new
             del kk, vv
-        x = constrain(x, "dp", "model_seq", "model_d")
+        x = constrain(x, *_BOUNDARY)
     return x
 
 
@@ -592,10 +767,66 @@ def backbone(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None
     cfg = cfg or model.cfg
     S = tokens.shape[1]
     tokens = constrain(tokens, "dp", None)
-    x = constrain(_embed(model, tokens), "dp", "model_seq", "model_d")
+    x = constrain(_embed(model, tokens), *_BOUNDARY)
     positions = torch.arange(S, device=x.device)[None, :]
     x = _run_layers(model, x, positions, cfg)
     return rmsnorm(x, model.ln_f, cfg.norm_eps)
+
+
+class _ShardNLL(torch.autograd.Function):
+    """Each row's ``logsumexp - gold`` of logits whose last axis is split in
+    blocks over ``group`` (this rank's block starts at column ``start``):
+    the max, the sum of exponentials and the gold logit are reduced across
+    the blocks, one value a row (a vocabulary-parallel cross entropy). The
+    backward, ``g * (softmax - onehot(gold))``, needs no communication."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        def across(t, op):
+            return t if group is None else funcol.all_reduce(t, op, group)
+
+        V = logits.shape[-1]
+        m = across(logits.amax(-1, keepdim=True), "max")
+        e = torch.exp(logits - m)
+        se = across(e.sum(-1, keepdim=True), "sum")
+        idx = labels.long()[..., None] - start
+        mine = (idx >= 0) & (idx < V)
+        idx = idx.clamp(0, V - 1)
+        gold = across(torch.where(mine, torch.gather(logits, -1, idx), 0.0), "sum")
+        ctx.save_for_backward(e.div_(se), mine, idx)
+        return (m + torch.log(se) - gold)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        p, mine, idx = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, idx, -(g[..., None] * mine))
+        return grad, None, None, None
+
+
+def _sharded_nll(logits, labels):
+    """:class:`_ShardNLL` of a DTensor ``logits`` [B, c, V] whose vocabulary
+    is split over at most one mesh dimension (its rows split as the labels'
+    [B, c]), run on each rank's shard through ``local_map``; the result is
+    placed as ``labels``."""
+    mesh, place = logits.device_mesh, tuple(logits.placements)
+    vocab = [d for d, p in enumerate(place) if p.is_shard(logits.dim() - 1)]
+    if len(vocab) > 1:
+        raise ValueError(f"loss: the vocabulary split over mesh dimensions {vocab}")
+    rows = [Replicate() if p.is_shard(logits.dim() - 1) or p.is_partial() else p for p in place]
+    if any(p.is_partial() for p in place) or tuple(labels.placements) != tuple(rows):
+        raise ValueError(f"loss: logits placed {place}, labels {tuple(labels.placements)}")
+    start, group = 0, None
+    if vocab:
+        block = logits.to_local().shape[-1]
+        if block * mesh.size(vocab[0]) != logits.shape[-1]:
+            raise ValueError(f"loss: {logits.shape[-1]} columns unevenly over {mesh.size(vocab[0])}")
+        start = mesh.get_local_rank(vocab[0]) * block
+        group = mesh.get_group(vocab[0])
+    return local_map(lambda lg, lb: _ShardNLL.apply(lg, lb, start, group), out_placements=rows,
+                     in_placements=(list(place), rows), device_mesh=mesh)(logits, labels)
 
 
 def _chunk_nll(lm_head, h, labels, mask, cfg: TransformerConfig):
@@ -604,49 +835,71 @@ def _chunk_nll(lm_head, h, labels, mask, cfg: TransformerConfig):
     logits = _matmul(h, lm_head).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    # the gold logit keeps its last axis until the subtraction: on a
-    # vocabulary-sharded DTensor the gather's masked partial sum is reduced
-    # there, and its mask is shaped like the gather's output
-    gold = torch.gather(logits, -1, labels[..., None].long())
-    nll = (torch.logsumexp(logits, -1, keepdim=True) - gold)[..., 0]
+    # on a DTensor, a vocabulary-parallel cross entropy: DTensor's own
+    # gather would build the chunk's whole [B, c, V] gradient on every rank
+    if isinstance(logits, DTensor):
+        nll = _sharded_nll(logits, labels)
+    else:
+        nll = (torch.logsumexp(logits, -1, keepdim=True)
+               - torch.gather(logits, -1, labels[..., None].long()))[..., 0]
     return torch.where(mask, nll, 0.0).sum()
 
 
-def loss_fn(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None):
-    """Next-token cross entropy of ``tokens`` [B, S] (the reference's
-    ``loss_fn``): the labels are the tokens shifted left with the first
-    moved to the end, the last position masked out; the head runs in chunks
-    of ``loss_chunk`` positions (each checkpointed where autograd records
-    and ``cfg.remat`` is set: one [B, loss_chunk, V] float32 block of logits
-    at a time); the chunks' sum over the unmasked count."""
-    cfg = cfg or model.cfg
+def lm_loss(lm_head, h, tokens, cfg: TransformerConfig):
+    """The next-token loss of the final hidden rows ``h`` [B, S, d] of
+    ``tokens`` [B, S]: the labels are the tokens shifted left with the
+    first moved to the end, the last position masked out; the head runs in
+    chunks of ``loss_chunk`` positions (each checkpointed where autograd
+    records and ``cfg.remat`` is set: one [B, loss_chunk, V] float32 block
+    of logits at a time); the chunks' sum over the unmasked count. Under
+    rules the rows are gathered whole and the head's FSDP-sharded rows too,
+    so each chunk's logits split only the batch and the vocabulary."""
     B, S = tokens.shape
     c = min(cfg.loss_chunk, S)
     if S % c:
         raise ValueError(f"loss_chunk {c} does not divide the sequence length {S}")
-    h = backbone(model, tokens, cfg)
+    h = constrain(h, "dp", None, None)
+    lm_head = constrain(lm_head, None, "vocab")
     tokens = constrain(tokens, "dp", None)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(B, S, dtype=torch.bool, device=tokens.device)
     mask[:, -1] = False
     mask = constrain(mask, "dp", None)
-    remat = cfg.remat and _recording(h, model.lm_head)
+    remat = cfg.remat and _recording(h, lm_head)
     nlls = []
     for j in range(0, S, c):
-        args = (model.lm_head, h[:, j:j + c], labels[:, j:j + c], mask[:, j:j + c], cfg)
+        args = (lm_head, h[:, j:j + c], labels[:, j:j + c], mask[:, j:j + c], cfg)
         nlls.append(checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
                     else _chunk_nll(*args))
     return torch.stack(nlls).sum() / torch.clamp(mask.sum(), min=1)
 
 
-def lm_logits(model: Transformer, h, cfg: Optional[TransformerConfig] = None, softcap=True):
-    """float32 logits of hidden rows ``h`` [..., d] through ``lm_head``, soft-capped
-    as the decode step does (``softcap=False``: as the prefill step does)."""
+def loss_fn(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None):
+    """Next-token cross entropy of ``tokens`` [B, S] (the reference's
+    ``loss_fn``): :func:`backbone`, then :func:`lm_loss`."""
     cfg = cfg or model.cfg
-    logits = _matmul(h, model.lm_head).float()
+    c = min(cfg.loss_chunk, tokens.shape[1])
+    if tokens.shape[1] % c:
+        raise ValueError(f"loss_chunk {c} does not divide the sequence length {tokens.shape[1]}")
+    return lm_loss(model.lm_head, backbone(model, tokens, cfg), tokens, cfg)
+
+
+def head_logits(lm_head, h, cfg: TransformerConfig, softcap=True, batch="dp"):
+    """float32 logits of hidden rows ``h`` [B, d] through ``lm_head``, soft-capped
+    as the decode step does (``softcap=False``: as the prefill step does).
+    Under rules the rows' features and the head's FSDP-sharded rows are
+    gathered: the logits split the batch (the logical name ``batch``) and
+    the vocabulary."""
+    logits = _matmul(constrain(h, batch, None), constrain(lm_head, None, "vocab")).float()
     if softcap and cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def lm_logits(model: Transformer, h, cfg: Optional[TransformerConfig] = None, softcap=True,
+              batch="dp"):
+    """:func:`head_logits` through the model's ``lm_head``."""
+    return head_logits(model.lm_head, h, cfg or model.cfg, softcap, batch)
 
 
 # ---------------------------------------------------------------- decode
@@ -668,19 +921,113 @@ def prefill(model: Transformer, tokens, cfg: Optional[TransformerConfig] = None,
     """Build the KV cache for a prompt; returns (cache, last hidden [B, d]).
 
     The cache has ``max_len`` slots (default S, the reference's cache), the
-    prompt's k/v in slots [0, S) and zeros past them, allocated once.
+    prompt's k/v in slots [0, S) and zeros past them, allocated once. Under
+    rules the cache is laid out as its spec names (each rank allocating its
+    shard), and then it has S slots.
     """
     cfg = cfg or model.cfg
     B, S = tokens.shape
     max_len = S if max_len is None else max_len
     if max_len < S:
         raise ValueError(f"max_len {max_len} < prompt length {S}")
-    x = constrain(_embed(model, tokens), "dp", "model_seq", "model_d")
-    cache = {name: torch.zeros(s.shape, dtype=s.dtype, device=x.device)
+    tokens = constrain(tokens, "dp", None)
+    x = constrain(_embed(model, tokens), *_BOUNDARY)
+    cache = {name: zeros(s.shape, s.dtype, x.device, *s.logical)
              for name, s in kv_cache_specs(cfg, B, max_len).items()}
+    if isinstance(cache["k"], DTensor) and max_len != S:
+        raise ValueError(f"prefill: a laid-out cache holds the prompt's {S} slots, not {max_len}")
     positions = torch.arange(S, device=x.device)[None, :]
     x = _run_layers(model, x, positions, cfg, cache)
     return cache, rmsnorm(x[:, -1], model.ln_f, cfg.norm_eps)
+
+
+def _decode_attention(qh, kk, vv, kc, vc, cache_len: int, start: int = 0, groups=()):
+    """One token's attention: ``qh`` [B, Kv, G, D] against the cache slots
+    ``kc``/``vc`` [B, S, Kv, D] (global slots ``start + j``; those at or past
+    ``cache_len`` masked) and its own ``kk``/``vv`` [B, 1, Kv, D], all in one
+    softmax -> [B, Kv, G, D] float32. With ``groups`` (the process groups
+    over which the cache's slots are split) each rank holds one block of
+    the slots: the max, the sum of exponentials and the weighted values are
+    reduced across the blocks (the token's own slot counted on the block at
+    ``start == 0``)."""
+    B, Kv, G, D = qh.shape
+    S = kc.shape[1]
+    s_cache = torch.stack([_matmul_f32(qh[b], kc[b].permute(1, 2, 0)) for b in range(B)])
+    s_self = _matmul_f32(qh, kk.reshape(B, Kv, D, 1))  # [B, Kv, G, 1]
+    s = torch.cat([s_cache, s_self], dim=-1) / np.float32(np.sqrt(D))
+    past = torch.arange(start, start + S, device=s.device) >= int(cache_len)  # masked slots
+    s[..., :S].masked_fill_(past, -1e30)
+    if not groups:
+        p = _softmax_(s).to(vc.dtype)
+        attn = torch.stack([_matmul_f32(p[b, ..., :S], vc[b].permute(1, 0, 2)) for b in range(B)])
+        return attn + p[..., S:].float() * vv.reshape(B, Kv, 1, D).float()
+    from torch.distributed import _functional_collectives as funcol
+
+    def across(t, op):
+        for g in groups:
+            t = funcol.all_reduce(t, op, g)
+        return t
+
+    if start:
+        s[..., S:] = -1e30
+    e = s.sub_(across(s.amax(-1, keepdim=True), "max")).exp_()
+    den = across(e.sum(-1, keepdim=True), "sum")
+    p = e.to(vc.dtype)
+    num = torch.stack([_matmul_f32(p[b, ..., :S], vc[b].permute(1, 0, 2)) for b in range(B)])
+    num = num + p[..., S:].float() * vv.reshape(B, Kv, 1, D).float()
+    return across(num, "sum") / den
+
+
+def _decode_attention_sharded(qh, kk, vv, kc, vc, cache_len: int):
+    """:func:`_decode_attention` of DTensors, on each rank's shard through
+    ``local_map``: q and the new k/v laid out as the cache's batch and heads,
+    the cache's slots split over the mesh dimensions (the groups) that split
+    its sequence. The result is placed as q, replicated over those."""
+    mesh, place = kc.device_mesh, tuple(kc.placements)
+    if any(p.is_partial() or (p.is_shard() and p.dim == 3) for p in place):
+        raise ValueError(f"decode attention: cache placed {place}")
+    seq_dims = [d for d, p in enumerate(place) if p.is_shard(1)]
+    qp = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate() for p in place]
+    kvp = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2) else Replicate() for p in place]
+    qh = qh.redistribute(mesh, qp)
+    kk, vv = (t.redistribute(mesh, kvp) for t in (kk, vv))
+    if vc.placements != kc.placements:
+        raise ValueError(f"decode attention: k and v caches placed {place}, {vc.placements}")
+    block = kc.to_local().shape[1]
+    if block * math.prod(mesh.size(d) for d in seq_dims) != kc.shape[1]:
+        raise ValueError(f"decode attention: {kc.shape[1]} slots unevenly over {seq_dims}")
+    index = 0  # this rank's block of slots, the mesh dimensions major to minor
+    for d in seq_dims:
+        index = index * mesh.size(d) + mesh.get_local_rank(d)
+    groups = tuple(mesh.get_group(d) for d in seq_dims)
+    fn = functools.partial(_decode_attention, cache_len=cache_len, start=index * block,
+                           groups=groups)
+    layout = [list(qp), list(kvp), list(kvp), list(place), list(place)]
+    return local_map(fn, out_placements=list(qp), in_placements=layout,
+                     device_mesh=mesh)(qh, kk, vv, kc, vc)
+
+
+def decode_layer(x, lp, kc, vc, cache_len: int, cfg: TransformerConfig, freqs):
+    """One layer of :func:`decode_step`: x [B, 1, d] against this layer's
+    cache ``kc``/``vc`` [B, S_max, Kv, D] (read in place) -> (x, k, v), the
+    new k/v [B, 1, Kv, D] in the cache's dtype."""
+    B = x.shape[0]
+    Kv, D, G = cfg.n_kv, cfg.d_head, cfg.n_heads // cfg.n_kv
+    pos = torch.full((B, 1), int(cache_len), dtype=torch.int32, device=x.device)
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, kk, vv = _qkv(h, lp, cfg, pos, freqs, lead=_DECODE[:2])
+    kk, vv = kk.to(kc.dtype), vv.to(vc.dtype)
+    # q's heads grouped by their k/v head: split as the cache's k/v heads
+    qh = constrain(q, "cache_batch", None, "kv_heads", None).reshape(B, Kv, G, D)
+    if isinstance(kc, DTensor):
+        attn = _decode_attention_sharded(qh, kk, vv, kc, vc, cache_len)
+    else:
+        attn = _decode_attention(qh, kk, vv, kc, vc, cache_len)
+    attn = attn.reshape(B, 1, cfg.n_heads, D)
+    x = x + constrain(_out_proj(attn.to(x.dtype), lp["wo"]), *_DECODE)
+    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    x = x + constrain(_ffn(h2, lp, cfg, _DECODE[:2]), *_DECODE).to(x.dtype)
+    return x, kk, vv
 
 
 @torch.no_grad()
@@ -692,38 +1039,38 @@ def decode_step(model: Transformer, cache: dict, token, cache_len,
     scores against the whole cache (masked past ``cache_len``) and against
     its own k are one softmax, its own v added after the cache's product.
     Returns (logits [B, V] float32, new k/v [L, B, 1, Kv, D]); the caller
-    commits them (``make_lm_decode`` does, in place).
+    commits them (``make_lm_decode`` does, in place, :func:`commit_kv`).
     """
     cfg = cfg or model.cfg
-    B = token.shape[0]
-    S_max = cache["k"].shape[2]
-    Kv, D, G = cfg.n_kv, cfg.d_head, cfg.n_heads // cfg.n_kv
-    x = _embed(model, token)[:, None]  # [B, 1, d]
-    dev = x.device
-    pos = torch.full((B, 1), int(cache_len), dtype=torch.int32, device=dev)
-    past = torch.arange(S_max, device=dev) >= int(cache_len)  # masked slots
+    token = constrain(token, "cache_batch")
+    x = constrain(_embed(model, token)[:, None], *_DECODE)  # [B, 1, d]
     knew, vnew = [], []
     for i in range(cfg.n_layers):
-        lp = model.layer_params(i)
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, kk, vv = _qkv(h, lp, cfg, pos, model.rope_freqs)
-        kk, vv = kk.to(cache["k"].dtype), vv.to(cache["v"].dtype)
-        qh = q.reshape(B, Kv, G, D)
-        kc, vc = cache["k"][i], cache["v"][i]  # [B, S_max, Kv, D]: read in place
-        s_cache = torch.stack([_matmul_f32(qh[b], kc[b].permute(1, 2, 0)) for b in range(B)])
-        s_self = _matmul_f32(qh, kk.reshape(B, Kv, D, 1))  # [B, Kv, G, 1]
-        s = torch.cat([s_cache, s_self], dim=-1) / np.float32(np.sqrt(D))
-        s[..., :S_max].masked_fill_(past, -1e30)
-        p = _softmax_(s).to(vc.dtype)
-        attn = torch.stack([_matmul_f32(p[b, ..., :S_max], vc[b].permute(1, 0, 2))
-                            for b in range(B)])  # [B, Kv, G, D]
-        attn = attn + p[..., S_max:].float() * vv.reshape(B, Kv, 1, D).float()
-        attn = attn.reshape(B, 1, cfg.n_heads, D)
-        x = x + _out_proj(attn.to(x.dtype), lp["wo"])
-        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn(h2, lp, cfg).to(x.dtype)
+        x, kk, vv = decode_layer(x, model.layer_params(i), cache["k"][i], cache["v"][i],
+                                 cache_len, cfg, model.rope_freqs)
         knew.append(kk)
         vnew.append(vv)
     x = rmsnorm(x, model.ln_f, cfg.norm_eps)
-    logits = lm_logits(model, x[:, 0], cfg)
+    logits = lm_logits(model, x[:, 0], cfg, batch="cache_batch")
     return logits, (torch.stack(knew), torch.stack(vnew))
+
+
+def commit_kv(cache: dict, knew, vnew, slot: int) -> None:
+    """Write the new k/v [L, B, 1, Kv, D] into slot ``slot`` of the cache
+    [L, B, S, Kv, D], in place; on a laid-out cache each rank writes into its
+    own block of the slots (the one that holds ``slot``, if any)."""
+    for name, new in (("k", knew), ("v", vnew)):
+        c = cache[name]
+        if not isinstance(c, DTensor):
+            c[:, :, slot] = new[:, :, 0]
+            continue
+        mesh, place = c.device_mesh, tuple(c.placements)
+        layout = [Replicate() if p.is_shard(2) else p for p in place]
+        local, new_local = c.to_local(), new.redistribute(mesh, layout).to_local()
+        block = local.shape[2]
+        index = 0
+        for d, p in enumerate(place):
+            if p.is_shard(2):
+                index = index * mesh.size(d) + mesh.get_local_rank(d)
+        if index * block <= slot < (index + 1) * block:
+            local[:, :, slot - index * block] = new_local[:, :, 0]

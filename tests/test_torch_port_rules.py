@@ -27,7 +27,8 @@ from repro_torch.configs import get_arch
 from repro_torch.data import RecsysPipeline, TokenPipeline, make_gnn_batch
 from repro_torch.distributed import build_mesh, constrain, plan_remesh, sharding_rules
 from repro_torch.graph import coarsen_by_matching
-from repro_torch.launch import gnn_train, matching_e2e, quickstart, serve_recsys, steps, train_lm
+from repro_torch.launch import (dryrun, gnn_train, matching_e2e, quickstart, serve_recsys, steps,
+                                train_lm)
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import bert4rec, egnn, equiformer_v2, gin, meshgraphnet, transformer
 from repro_torch.optim import AdamWConfig
@@ -177,6 +178,11 @@ SLICE_ENTRIES = {
         get_arch("bert4rec"), get_arch("bert4rec").shapes["train_batch"], AdamWConfig()),
     "train_lm_main": lambda s, c: train_lm.main(["--steps", "1"]),
     "make_host_mesh": lambda s, c: make_host_mesh(1, 1),
+    "build_step": lambda s, c: steps.build_step(
+        get_arch("gemma-7b"), get_arch("gemma-7b").shapes["train_4k"]),
+    "dryrun_calibrate": lambda s, c: dryrun.calibrate(
+        get_arch("gemma-7b"), get_arch("gemma-7b").shapes["train_4k"], {},
+        {"peak_bytes": 1, "step_ms": 1.0}),
     "quickstart_main": lambda s, c: quickstart.main([]),
     "matching_e2e_main": lambda s, c: matching_e2e.main([]),
 }
@@ -187,7 +193,8 @@ def test_rounds_gseq_and_substrate_default_to_the_card(monkeypatch, entry):
     """The rounds engines, G-SEQ, ``substream_matchings``, coarsening, the
     meshes, the GNN models, batches, train step and trainer, the pipelines,
     the LM and BERT4Rec models, their train and serving steps, the LM
-    trainer, the recsys server and the two matching examples:
+    trainer, the recsys server, the two matching examples, the dry-run's
+    ``build_step`` and its calibration against a step on the card:
     ``device=None`` (for the sharded rounds, a mesh on the card) raises
     without a card, before any work."""
     stream, cfg = _cpu_stream(), SubstreamConfig(n=3, L=8)

@@ -1,9 +1,9 @@
 """Sharded execution of the port as DTensor placement, held to the JAX package.
 
 * ``pspecs``: for every arch and shape of the registry, on the reference's
-  single- and multi-pod meshes, the port's ``pspecs`` under the reference's
+  single- and multi-pod meshes, the port's ``pspecs`` under the port's
   ``arch_rules`` give every leaf of the step's trees (parameters, optimizer
-  state, inputs) the reference ``pspecs``' axes. ``shardings`` on gloo
+  state, inputs) the axes of the reference's ``pspecs`` under its own. ``shardings`` on gloo
   worlds of CPU processes give the expected ``Shard``/``Replicate`` lists,
   and a dimension over ``("pod", "data")`` holds the rows that jax's
   ``NamedSharding`` gives each device (a subprocess with 8 forced host
@@ -128,12 +128,12 @@ CASES = [(a, s) for a in jregistry.all_arch_ids() for s in jregistry.get_arch(a)
 def test_pspecs_match_reference(arch_id, shape_name, multi_pod):
     jarch = jregistry.get_arch(arch_id)
     jshape = jarch.shapes[shape_name]
-    rules = jsteps.arch_rules(jarch, jshape, multi_pod)
-    want = [_flat_reference(j_pspecs(t, rules))
+    want = [_flat_reference(j_pspecs(t, jsteps.arch_rules(jarch, jshape, multi_pod)))
             for t in _trees(jsteps, jtfm, jb4r, jarch, jshape, JAdamWConfig())]
     arch = get_arch(arch_id)
-    got = [_flat(pspecs(t, rules))
-           for t in _trees(steps, tfm, b4r, arch, arch.shapes[shape_name], AdamWConfig())]
+    shape = arch.shapes[shape_name]
+    rules = steps.arch_rules(arch, shape, multi_pod)
+    got = [_flat(pspecs(t, rules)) for t in _trees(steps, tfm, b4r, arch, shape, AdamWConfig())]
     assert got == want
 
 
