@@ -1238,9 +1238,8 @@ def phase_merge_device(stream, cfg, main):
 
 def phase_main_telemetry(config, stream, cfg, main):
     """The main path again with an enabled ``Telemetry``: the same matching,
-    one ``kernel_edges`` record whose stage split holds together, its
-    roofline, and the pipeline's time beside the main path's (telemetry
-    off)."""
+    one ``kernel_edges`` record whose stage split holds together, and the
+    pipeline's time beside the main path's (telemetry off)."""
     import numpy as np
     import torch
 
@@ -1262,8 +1261,7 @@ def phase_main_telemetry(config, stream, cfg, main):
         raise AssertionError("the main path with telemetry differs from the one without")
     rec, = tel.match_calls
     problems = obs.consistency_problems(rec.stage_seconds, rec.wall_seconds)
-    roofline = {k: v for k, v in rec.roofline().items() if v != float("inf")}  # JSON has no inf
-    emit("main_path_telemetry", record=rec.asdict(), roofline=roofline,
+    emit("main_path_telemetry", record=rec.asdict(),
          consistency_problems=problems, events=tel.events,
          pipeline_seconds={"telemetry_on": pipeline_s, "telemetry_off": main["pipeline_s"]},
          launches=launches)

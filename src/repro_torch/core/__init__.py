@@ -20,6 +20,7 @@ Public API:
 """
 from __future__ import annotations
 
+from repro_torch import obs
 from repro_torch.core.bitpack import pack_bits, packed_width, unpack_bits
 from repro_torch.core.types import (
     EdgeStream,
@@ -57,6 +58,7 @@ def mwm_pipeline(
     part1: str = "scan",
     K: int = 32,
     device=None,
+    telemetry=obs.DISABLED,
     **kw,
 ):
     """End-to-end (4+eps)-approximate MWM. Returns (edge_indices, weight).
@@ -68,22 +70,35 @@ def mwm_pipeline(
     e.g. ``schedule="mega"`` or ``packed=False`` for the unpacked int8
     block), or the parallel rounds on the stream's own order. ``device=None``
     runs on the card.
+
+    ``telemetry`` (resolved by :func:`repro_torch.obs.active`, so a
+    ``torch.profiler`` window records without it) records one ``pipeline``
+    span (args ``call``, the call's number in the session, ``m`` and
+    ``part1``) holding Part 1's spans, ``merge.host``'s and ``merge.weight``.
     """
     dev = resolve_device(device)
-    if part1 == "scan":
-        res = mwm_scan(stream, cfg, device=dev)
-    elif part1 == "waves":
-        res = mwm_waves(stream, cfg, device=dev, **kw)
-    elif part1 == "blocked":
-        res = mwm_blocked(stream, cfg, K=K, backend="scan", device=dev)
-    elif part1 == "kernel":
-        res = mwm_blocked(stream, cfg, K=K, backend="kernel", device=dev, **kw)
-    elif part1 == "rounds":
-        res = mwm_rounds(stream, cfg, device=dev)
-    else:
+    if part1 not in ("scan", "waves", "blocked", "kernel", "rounds"):
         raise ValueError(part1)
-    idx = merge_host(stream, res, cfg)
-    return idx, matching_weight(stream, idx)
+    tel = obs.active(telemetry)
+    with tel.span("pipeline", sync=dev) as span:
+        if tel.enabled:
+            span.note(call=tel.pipeline_calls, m=stream.num_edges, part1=part1)
+            tel.pipeline_calls += 1
+        if part1 == "scan":
+            res = mwm_scan(stream, cfg, device=dev)
+        elif part1 == "waves":
+            res = mwm_waves(stream, cfg, device=dev, telemetry=tel, **kw)
+        elif part1 == "blocked":
+            res = mwm_blocked(stream, cfg, K=K, backend="scan", device=dev, telemetry=tel)
+        elif part1 == "kernel":
+            res = mwm_blocked(stream, cfg, K=K, backend="kernel", device=dev, telemetry=tel,
+                              **kw)
+        else:
+            res = mwm_rounds(stream, cfg, device=dev, telemetry=tel)
+        idx = merge_host(stream, res, cfg, telemetry=tel)
+        with tel.span("merge.weight"):
+            weight = matching_weight(stream, idx)
+    return idx, weight
 
 
 __all__ = [

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.matching import mwm_scan
 from repro_torch.core.types import EdgeStream, MatchingResult, SubstreamConfig, resolve_device
 
@@ -48,6 +49,7 @@ def mwm_blocked(
     K: int = 32,
     backend: str = "scan",
     device=None,
+    telemetry=obs.DISABLED,
     **kernel_kwargs,
 ) -> MatchingResult:
     """Listing 2: lexicographic blocked processing.
@@ -59,19 +61,29 @@ def mwm_blocked(
                        ``seg_block=``, ...).
 
     ``assigned`` is returned in the *original* stream order.
+
+    ``telemetry`` (resolved by :func:`repro_torch.obs.active`) records one
+    ``blocked`` span holding ``stream.to`` (where the stream is copied),
+    ``blocked.order`` (the three sorts), ``blocked.permute``, Part 1's own
+    spans and ``blocked.unpermute``; each ends with a synchronise.
     """
     from repro_torch.kernels.substream_match.ops import substream_match  # imports core
 
-    dev = resolve_device(device)
-    stream = stream.to(dev)
-    order = lexicographic_order(stream, K)
-    blocked = permute_stream(stream, order)
-    if backend == "scan":
-        res = mwm_scan(blocked, cfg, device=dev)
-    elif backend == "kernel":
-        res = substream_match(blocked, cfg, device=dev, **kernel_kwargs)
-    else:
+    if backend not in ("scan", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
-    assigned = torch.empty_like(res.assigned)
-    assigned[order] = res.assigned
+    dev = resolve_device(device)
+    tel = obs.active(telemetry)
+    with tel.span("blocked", sync=dev):
+        stream = stream.to(dev, telemetry=tel)
+        with tel.span("blocked.order", sync=dev):
+            order = lexicographic_order(stream, K)
+        with tel.span("blocked.permute", sync=dev):
+            blocked = permute_stream(stream, order)
+        if backend == "scan":
+            res = mwm_scan(blocked, cfg, device=dev)
+        else:
+            res = substream_match(blocked, cfg, device=dev, telemetry=tel, **kernel_kwargs)
+        with tel.span("blocked.unpermute", sync=dev):
+            assigned = torch.empty_like(res.assigned)
+            assigned[order] = res.assigned
     return res.with_assigned(assigned)

@@ -32,27 +32,38 @@ def merge_host(
     greedy pass is the dependency chain and stays a loop, like the paper's
     sequential post-processor.
 
-    ``telemetry`` records one ``merge.host`` span plus the recorded /
+    ``telemetry`` (resolved by :func:`repro_torch.obs.active`) records one
+    ``merge.host`` span holding ``merge.d2h`` (``assigned`` to the host;
+    arg ``bytes``), ``merge.order`` (the recorded edges in merge order and
+    their endpoints on the host; arg ``recorded``, R) and ``merge.greedy``
+    (the loop; args ``recorded`` and ``matched``), plus the recorded /
     matched edge counters.
     """
+    telemetry = obs.active(telemetry)
     with telemetry.span("merge.host"):
-        assigned = to_numpy(result.assigned)
-        recorded = np.nonzero(assigned >= 0)[0]
-        if recorded.size == 0:
-            # empty / all-dropped streams: a well-formed empty T, skipping the
-            # n-sized allocation (n may be 0 here)
-            merged = np.zeros(0, dtype=np.int64)
-        else:
+        with telemetry.span("merge.d2h", sync=result.assigned) as span:
+            if telemetry.enabled:
+                span.note(bytes=result.assigned.nbytes)
+            assigned = to_numpy(result.assigned)
+        with telemetry.span("merge.order") as span:
+            recorded = np.nonzero(assigned >= 0)[0]
             order = recorded[np.argsort(cfg.L - 1 - assigned[recorded], kind="stable")]
             src = to_numpy(stream.src)[order].tolist()
             dst = to_numpy(stream.dst)[order].tolist()
-            tbits = bytearray(cfg.n)
+            if telemetry.enabled:
+                span.note(recorded=int(recorded.size))
+        with telemetry.span("merge.greedy") as span:
             out = []
-            for e, u, v in zip(order.tolist(), src, dst):
-                if not tbits[u] and not tbits[v]:
-                    tbits[u] = tbits[v] = 1
-                    out.append(e)
+            if recorded.size:
+                # empty / all-dropped streams skip the n-sized allocation (n may be 0)
+                tbits = bytearray(cfg.n)
+                for e, u, v in zip(order.tolist(), src, dst):
+                    if not tbits[u] and not tbits[v]:
+                        tbits[u] = tbits[v] = 1
+                        out.append(e)
             merged = np.sort(np.asarray(out, dtype=np.int64))
+            if telemetry.enabled:
+                span.note(recorded=int(recorded.size), matched=int(merged.size))
     if telemetry.enabled:
         telemetry.counters.add("merge.host.calls")
         telemetry.counters.put("merge.recorded_edges", int(recorded.size))

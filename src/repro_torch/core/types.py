@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bitpack
 
 _I32 = np.iinfo(np.int32)
@@ -84,14 +85,28 @@ class EdgeStream:
     def device(self) -> torch.device:
         return self.src.device
 
-    def to(self, device) -> "EdgeStream":
-        """The same stream on ``device`` (itself when already there)."""
+    def to(self, device, telemetry=obs.DISABLED) -> "EdgeStream":
+        """The same stream on ``device`` (itself when already there).
+
+        ``telemetry`` records a ``stream.to`` span where the stream is not
+        on ``device`` already, with its ``bytes`` and the ``source`` and
+        ``target`` devices as args."""
         device = torch.device(device)
         if self.src.device == device:
             return self
-        return EdgeStream(
-            *(t.to(device) for t in (self.src, self.dst, self.weight, self.valid))
-        )
+        cuda = device if device.type == "cuda" else self.src.device
+        with telemetry.span("stream.to", sync=cuda) as span:
+            if telemetry.enabled:
+                span.note(bytes=self.nbytes, source=str(self.src.device),
+                          target=str(device))
+            return EdgeStream(
+                *(t.to(device) for t in (self.src, self.dst, self.weight, self.valid))
+            )
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the stream's four arrays."""
+        return sum(t.nbytes for t in (self.src, self.dst, self.weight, self.valid))
 
     @staticmethod
     def from_numpy(

@@ -205,24 +205,6 @@ def mega_plan(
     )
 
 
-#: Bytes one slot (or edge) moves through device memory: (src, dst) int32
-#: and the weight in, assigned int32 out.
-SLOT_STREAM_BYTES = 16
-
-
-def traffic_bytes(total_slots: int, live_slots: int, width: int) -> int:
-    """Modeled per-call device-memory traffic of the row-addressed kernels.
-
-    The slot stream in and assigned out (``SLOT_STREAM_BYTES`` per slot,
-    padding included) plus the bit-block row traffic: two row gathers and
-    two row scatters of ``width`` bytes per live slot. The bytes term that
-    :func:`repro_torch.launch.roofline.substream_achieved` divides by;
-    exact integers from the plan, so telemetry counters derived from it
-    are reproducible bit-exactly.
-    """
-    return total_slots * SLOT_STREAM_BYTES + live_slots * 4 * width
-
-
 def plan_counters(plan: DevicePlan) -> dict:
     """The plan-accounting counter set (``plan.*``) for telemetry:
     bit-exact copies of the :func:`device_plan` / :func:`wave_plan` /
@@ -365,12 +347,13 @@ def substream_match(
     built here.
 
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`; default the no-op
-    :data:`repro_torch.obs.DISABLED`) records one
-    ``substream_match.backend`` event naming the backend that ran
-    (``"cuda"``, or ``"cpu"`` for the plain versions), the stage spans
-    (schedule/pack/layout/compile/execute), the plan and schedule
-    counters, and a :class:`repro_torch.obs.MatchTelemetry` appended to
-    ``telemetry.match_calls``.
+    :data:`repro_torch.obs.DISABLED`, resolved by
+    :func:`repro_torch.obs.active`) records a ``stream.to`` span where the
+    stream is copied, one ``substream_match.backend`` event naming the
+    backend that ran (``"cuda"``, or ``"cpu"`` for the plain versions), the
+    stage spans (schedule/pack/layout/compile/execute), the plan and
+    schedule counters, and a :class:`repro_torch.obs.MatchTelemetry`
+    appended to ``telemetry.match_calls``.
 
     ``validate`` is the input-guard policy: ``"off"`` (default, no cost),
     ``"strict"`` (raise on a malformed stream) or ``"sanitize"`` (drop the
@@ -393,7 +376,8 @@ def substream_match(
     _check_on_plan_failure(on_plan_failure)
     packed = _resolve_packed(cfg, packed)
     dev = resolve_device(device)
-    stream = stream.to(dev)
+    telemetry = obs.active(telemetry)
+    stream = stream.to(dev, telemetry=telemetry)
     if validate != "off":
         stream, _ = _guard.validate_stream(stream, cfg.n, policy=validate, telemetry=telemetry)
     if telemetry.enabled:
@@ -427,12 +411,14 @@ def merge_device(
     go through the kernel: the JAX package's ``merge_device`` scans all m
     edges with the rest marked invalid, which touches no bit either.
     Reads only ``result.assigned`` (packed-safe). ``device=None`` runs on
-    the card. ``telemetry`` records one ``merge.device`` span and the
-    ``merge.device.calls`` counter.
+    the card. ``telemetry`` (resolved by :func:`repro_torch.obs.active`)
+    records one ``merge.device`` span and the ``merge.device.calls``
+    counter.
     """
     dev = resolve_device(device)
+    telemetry = obs.active(telemetry)
     with telemetry.span("merge.device"):
-        stream = stream.to(dev)
+        stream = stream.to(dev, telemetry=telemetry)
         m = stream.num_edges
         mask = torch.zeros(m, dtype=torch.bool, device=dev)
         order = merge_order(result.with_assigned(result.assigned.to(dev)), cfg)
@@ -503,7 +489,6 @@ def _edges_entry(stream, cfg, *, packed, telemetry, mb0=None) -> MatchingResult:
         plan = device_plan(cfg.n, cfg.L, packed=packed)
         rec.put_many(plan_counters(plan))
         rec.put("stream.num_edges", m)
-        rec.put("traffic.hbm_bytes", traffic_bytes(m, m, plan.width))
     with rec.device_stage(_library(stream.device, _kernel.EDGES_LIBRARY)):
         assigned, mb = rec.block(_edges_device(args, packed))
     rec.finish()
@@ -534,7 +519,6 @@ def _waves_entry(stream, cfg, *, packed, waves, max_width, telemetry, mb0=None):
         rec.put_many(_waves.schedule_counters(sch))
         rec.put_many(plan_counters(plan))
         rec.put("stream.num_edges", m)
-        rec.put("traffic.hbm_bytes", traffic_bytes(plan.slots, sch.num_scheduled, plan.width))
     with rec.device_stage(_library(stream.device, _kernel.WAVES_LIBRARY)):
         assigned_slots, mb = rec.block(_waves_device(args, packed))
     with rec.stage("layout"):
@@ -555,7 +539,6 @@ def _mega_entry(stream, cfg, *, packed, waves, max_width, seg_block, telemetry, 
         rec.put_many(_waves.layout_counters(layout, sch))
         rec.put_many(plan_counters(plan))
         rec.put("stream.num_edges", m)
-        rec.put("traffic.hbm_bytes", traffic_bytes(plan.slots, sch.num_scheduled, plan.width))
     with rec.device_stage(_library(stream.device, _kernel.WAVES_LIBRARY)):
         assigned_slots, mb = rec.block(_mega_device(args, packed))
     with rec.stage("layout"):

@@ -1,17 +1,5 @@
-"""Roofline models on one NVIDIA H100: the substream-matching kernels' and
-the dry-run's, the JAX package's ``repro.launch.roofline`` recast for the
-card.
-
-The kernels' model has one term, in edges per second:
-
-  memory = HBM_BW / bytes_per_edge
-
-The reference's second term, a pipeline bound of a fixed cycle count an
-edge at the core clock, counts the TPU's vector pipeline; no such count
-has been measured on the card, so the port's bound is the bytes term
-alone and ``pipeline_edges_per_s`` is infinite (the key stays, so the
-terms have the reference's keys). Consumed by
-:meth:`repro_torch.obs.report.MatchTelemetry.roofline`.
+"""Roofline model of the dry-run on one NVIDIA H100, the JAX package's
+``repro.launch.roofline`` recast for the card.
 
 The dry-run's terms (``launch/dryrun.py``) are per-step times in seconds
 from a record's per-device counts: compute = FLOPs / PEAK_FLOPS, memory =
@@ -24,31 +12,6 @@ from __future__ import annotations
 #: bytes/s of HBM3 on one H100 SXM (NVIDIA H100 data sheet, 3.35 TB/s);
 #: the memory term ``chip_smoke.py`` computes its bounds with
 HBM_BW = 3.35e12
-
-
-def substream_bound(bytes_per_edge: float) -> dict:
-    """Edges/sec roofline of the substream kernels at the given traffic:
-    the HBM bound (stream and bit-row traffic, ``bytes_per_edge`` per
-    edge). ``bytes_per_edge <= 0`` leaves no bound (infinite)."""
-    memory = HBM_BW / bytes_per_edge if bytes_per_edge > 0 else float("inf")
-    return {
-        "pipeline_edges_per_s": float("inf"),
-        "memory_edges_per_s": memory,
-        "bound_edges_per_s": memory,
-        "dominant": "memory",
-        "bytes_per_edge": bytes_per_edge,
-    }
-
-
-def substream_achieved(edges_per_sec: float, bytes_per_edge: float) -> dict:
-    """:func:`substream_bound` terms plus the achieved fraction."""
-    terms = substream_bound(bytes_per_edge)
-    terms["achieved_edges_per_s"] = edges_per_sec
-    terms["achieved_fraction"] = edges_per_sec / terms["bound_edges_per_s"]
-    return terms
-
-
-# ----------------------------------------------------- the dry-run's terms
 
 #: bf16 dense FLOP/s of one H100 SXM (NVIDIA H100 data sheet, no sparsity)
 PEAK_FLOPS = 989e12

@@ -4,26 +4,48 @@ package's ``repro.obs`` on the port's engines.
 Three parts:
 
 * :mod:`repro_torch.obs.trace`: nesting span tracer on ``perf_counter``
-  with Chrome trace-event JSON export (open in Perfetto);
+  with Chrome trace-event JSON export (open in Perfetto), whose spans
+  also open ``torch.profiler`` ranges while a profiler records;
 * :mod:`repro_torch.obs.counters`: flat metrics registry for the plan and
   schedule quantities the engines already compute;
 * :mod:`repro_torch.obs.report`: :class:`MatchTelemetry`, the per-call
-  aggregate (stage split, counters, derived rates, roofline fraction).
+  aggregate (stage split, counters, derived rate).
 
-Usage::
+There are two ways to get the spans of the matching pipeline.
 
-    from repro_torch import obs
+Run it under ``torch.profiler``, with nothing passed: the main path's
+entries (``mwm_pipeline``, ``mwm_blocked``, ``substream_match``,
+``merge_host``, ``merge_device``) resolve their ``telemetry`` through
+:func:`active`, which, while the profiler records, hands them one
+process-wide session (:func:`profiler_session`). Every span then lies in
+the profiler's trace as a ``repro_torch/<name>`` range beside the kernels
+and copies it launched, and stays readable in the session afterwards::
+
+    with torch.profiler.profile(activities=[...CPU, ...CUDA]) as prof:
+        mwm_pipeline(stream, cfg, part1="kernel")
+    prof.export_chrome_trace("trace.json")        # spans and kernels, one clock
+    obs.profiler_session().tracer.events          # the same spans, in memory
+
+Or pass a session of your own::
 
     tel = obs.Telemetry()
-    result = substream_match(stream, cfg, schedule="mega", telemetry=tel)
+    idx, weight = mwm_pipeline(stream, cfg, part1="kernel", telemetry=tel)
     print(tel.match_calls[-1].stage_seconds)     # schedule/pack/layout/...
     tel.write_chrome_trace("trace.json")          # -> ui.perfetto.dev
+
+One ``pipeline`` span per ``mwm_pipeline`` call holds ``blocked``
+(``stream.to``, ``blocked.order``, ``blocked.permute``, Part 1's
+``kernel_edges.*`` stages, ``blocked.unpermute``), ``merge.host``
+(``merge.d2h``, ``merge.order``, ``merge.greedy``) and ``merge.weight``.
+Under an enabled session a span that launches device work synchronises
+the device before it ends, so its length is its layer's time.
 
 Every instrumented entry point takes ``telemetry=obs.DISABLED`` by
 default. The disabled facade is one shared object whose ``span()``
 returns one shared no-op context manager and whose counter calls do
 nothing: engines call it unconditionally from hot paths without
-allocating or branching beyond a method dispatch.
+allocating or branching beyond a method dispatch. With no profiler
+recording, :func:`active` costs the entry one flag check.
 """
 from __future__ import annotations
 
@@ -36,11 +58,14 @@ from repro_torch.obs.report import (
     consistency_problems,
     recorder,
 )
-from repro_torch.obs.trace import NULL_SPAN, Span, Tracer, stopwatch
+from repro_torch.obs.trace import NULL_SPAN, Span, Tracer, profiling, stopwatch
 
 __all__ = [
     "Telemetry",
     "DISABLED",
+    "active",
+    "profiler_session",
+    "profiling",
     "Tracer",
     "Span",
     "Counters",
@@ -73,10 +98,12 @@ class Telemetry:
         self.counters = Counters()
         self.match_calls: list[MatchTelemetry] = []
         self.events: list[dict] = []
+        self.pipeline_calls = 0
 
-    def span(self, name: str, **args):
-        """Nesting span context manager (recorded on exit)."""
-        return self.tracer.span(name, **args)
+    def span(self, name: str, sync=None, **args):
+        """Nesting span context manager (recorded on exit); ``sync``, a
+        device synchronised before the span ends when it is a CUDA one."""
+        return self.tracer.span(name, sync, **args)
 
     def count(self, name: str, value=1):
         self.counters.add(name, value)
@@ -113,7 +140,7 @@ class _DisabledTelemetry:
 
     __slots__ = ()
 
-    def span(self, name, **args):
+    def span(self, name, sync=None, **args):
         return NULL_SPAN
 
     def count(self, name, value=1):
@@ -133,3 +160,27 @@ class _DisabledTelemetry:
 
 
 DISABLED = _DisabledTelemetry()
+
+
+_PROFILER_SESSION: Telemetry | None = None
+
+
+def profiler_session() -> Telemetry:
+    """The process-wide session that entries record into while a
+    ``torch.profiler`` records and they were passed no enabled session
+    (made at the first call; read it after the profiler's window)."""
+    global _PROFILER_SESSION
+    if _PROFILER_SESSION is None:
+        _PROFILER_SESSION = Telemetry()
+    return _PROFILER_SESSION
+
+
+def active(telemetry):
+    """The session an entry records into: ``telemetry`` when it is
+    enabled; otherwise :func:`profiler_session` while a profiler records,
+    and :data:`DISABLED` when none does (one flag check)."""
+    if telemetry is not None and telemetry.enabled:
+        return telemetry
+    if profiling():
+        return profiler_session()
+    return DISABLED

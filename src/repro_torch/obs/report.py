@@ -2,7 +2,7 @@
 
 A :class:`MatchTelemetry` is the aggregate of ONE ``substream_match``
 (or plain-engine) call: which engine and backend ran, the host stage
-split, the counter snapshot, and the derived rates. The stages:
+split, the counter snapshot, and the derived rate. The stages:
 
 ``schedule``
     Host wave-schedule assignment, or, when a precomputed schedule was
@@ -37,7 +37,7 @@ import time
 
 import torch
 
-from repro_torch.obs.trace import NULL_SPAN
+from repro_torch.obs.trace import NULL_SPAN, close_range, open_range
 
 #: The stage keys, in pipeline order. Every MatchTelemetry carries exactly these.
 STAGES = ("schedule", "pack", "layout", "compile", "execute")
@@ -75,17 +75,6 @@ class MatchTelemetry:
         return self.stage_seconds.get("compile", 0.0) + self.stage_seconds.get(
             "execute", 0.0
         )
-
-    def roofline(self) -> dict:
-        """Achieved-vs-bound fraction via :mod:`repro_torch.launch.roofline`,
-        from the call's modeled bytes per edge (``traffic.hbm_bytes`` over
-        the stream length). Returns the bound terms plus
-        ``achieved_fraction``."""
-        from repro_torch.launch import roofline as _roofline
-
-        nbytes = self.counters.get("traffic.hbm_bytes", 0)
-        bpe = nbytes / self.num_edges if self.num_edges else 0.0
-        return _roofline.substream_achieved(self.edges_per_sec, bpe)
 
     def asdict(self) -> dict:
         """JSON-ready dict (stages in canonical order, sorted counters)."""
@@ -128,15 +117,18 @@ def consistency_problems(
 
 
 class _StageSpan:
-    """Context manager crediting its duration to one recorder stage."""
+    """Context manager crediting its duration to one recorder stage (and,
+    while the profiler records, a ``record_function`` range of its span)."""
 
-    __slots__ = ("_rec", "_stage", "_t0")
+    __slots__ = ("_rec", "_stage", "_name", "_t0", "_range")
 
     def __init__(self, rec: "MatchRecorder", stage: str):
         self._rec = rec
         self._stage = stage
+        self._name = f"{rec.engine}.{stage}"
 
     def __enter__(self):
+        self._range = open_range(self._name)
         self._t0 = time.perf_counter()
         return self
 
@@ -144,9 +136,8 @@ class _StageSpan:
         t1 = time.perf_counter()
         rec = self._rec
         rec.stage_seconds[self._stage] += t1 - self._t0
-        rec._telemetry.tracer.complete(
-            f"{rec.engine}.{self._stage}", self._t0, t1
-        )
+        rec._telemetry.tracer.complete(self._name, self._t0, t1)
+        close_range(self._range)
         return False
 
 

@@ -9,6 +9,19 @@ Nesting is positional, exactly like Chrome's own traces: an event is a
 child of whichever event's ``[ts, ts + dur]`` interval encloses it on
 the same track, so the tracer needs no explicit stack.
 
+On the profiler's clock
+-----------------------
+While a ``torch.profiler`` records (:func:`profiling`), every span of an
+enabled session (:class:`Span`, the recorder's stages, :class:`stopwatch`)
+also opens ``torch.profiler.record_function("repro_torch/<name>")`` for
+its length: the profiler's trace then holds the span as a
+``user_annotation`` event on the same clock as the device's kernels and
+copies. The range is opened only after that one flag check says yes: an
+empty ``record_function`` costs tens of times the check even with no
+profiler running.
+A span opened with ``sync=<device>`` synchronises that device (when it is
+a CUDA device) before it ends, so that its length is its device work's.
+
 Zero-overhead-when-disabled contract
 ------------------------------------
 The disabled path never touches this module's classes: ``NULL_SPAN`` is
@@ -29,6 +42,39 @@ import json
 import threading
 import time
 
+import torch
+
+#: prefix of the profiler ranges the spans open
+PROFILER_PREFIX = "repro_torch/"
+
+#: True while a ``torch.profiler`` records on this process
+profiling = torch._C._autograd._profiler_enabled
+
+
+def open_range(name: str):
+    """The ``record_function`` range of span ``name``, entered, while the
+    profiler records; None (nothing opened) when it does not."""
+    if not profiling():
+        return None
+    rf = torch.profiler.record_function(PROFILER_PREFIX + name)
+    rf.__enter__()
+    return rf
+
+
+def close_range(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
+def synchronize(device) -> None:
+    """``torch.cuda.synchronize`` on ``device`` (a device, its name or a
+    tensor on it) when it is a CUDA device; nothing otherwise."""
+    if isinstance(device, torch.Tensor):
+        device = device.device
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
 
 class _NullSpan:
     """Shared no-op context manager — the entire disabled span path.
@@ -46,6 +92,9 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def note(self, **args):
+        pass
+
 
 NULL_SPAN = _NullSpan()
 
@@ -56,26 +105,38 @@ class Span:
     Timestamps are taken on ``__enter__``/``__exit__``; the completed
     event is appended to the owning tracer at exit. ``seconds`` holds
     the duration after exit (also exposed by :class:`stopwatch`).
+    ``sync`` names a device synchronised before the span ends (a clean
+    exit only); :meth:`note` adds args known only inside the span.
     """
 
-    __slots__ = ("_tracer", "name", "args", "t0", "seconds")
+    __slots__ = ("_tracer", "name", "args", "sync", "t0", "seconds", "_range")
 
-    def __init__(self, tracer: "Tracer", name: str, args: dict | None):
+    def __init__(self, tracer: "Tracer", name: str, args: dict | None, sync=None):
         self._tracer = tracer
         self.name = name
         self.args = args
+        self.sync = sync
         self.t0 = 0.0
         self.seconds = 0.0
+        self._range = None
 
     def __enter__(self) -> "Span":
+        self._range = open_range(self.name)
         self.t0 = time.perf_counter()
         return self
 
-    def __exit__(self, *exc) -> bool:
+    def __exit__(self, exc_type, *exc) -> bool:
+        if self.sync is not None and exc_type is None:
+            synchronize(self.sync)
         t1 = time.perf_counter()
         self.seconds = t1 - self.t0
         self._tracer.complete(self.name, self.t0, t1, self.args)
+        close_range(self._range)
         return False
+
+    def note(self, **args):
+        """Add ``args`` to the span's (they are exported with it)."""
+        self.args = {**(self.args or {}), **args}
 
 
 class Tracer:
@@ -98,9 +159,9 @@ class Tracer:
             tid = self._tids[ident] = len(self._tids)
         return tid
 
-    def span(self, name: str, **args) -> Span:
+    def span(self, name: str, sync=None, **args) -> Span:
         """``with tracer.span("pack"): ...`` — records one complete event."""
-        return Span(self, name, args or None)
+        return Span(self, name, args or None, sync)
 
     def complete(self, name: str, t0: float, t1: float, args: dict | None = None):
         """Record an already-measured span (the :class:`stopwatch` path)."""
@@ -160,7 +221,7 @@ class stopwatch:
     measurement, never two timing code paths.
     """
 
-    __slots__ = ("_telemetry", "_name", "_args", "t0", "seconds")
+    __slots__ = ("_telemetry", "_name", "_args", "t0", "seconds", "_range")
 
     def __init__(self, telemetry, name: str, **args):
         self._telemetry = telemetry
@@ -168,8 +229,12 @@ class stopwatch:
         self._args = args or None
         self.t0 = 0.0
         self.seconds = 0.0
+        self._range = None
 
     def __enter__(self) -> "stopwatch":
+        tel = self._telemetry
+        if tel is not None and tel.enabled:
+            self._range = open_range(self._name)
         self.t0 = time.perf_counter()
         return self
 
@@ -179,4 +244,5 @@ class stopwatch:
         tel = self._telemetry
         if tel is not None and tel.enabled:
             tel.tracer.complete(self._name, self.t0, t1, self._args)
+        close_range(self._range)
         return False

@@ -588,7 +588,46 @@ def test_telemetry_records_on_card(cuda, schedule, packed):
     assert obs.consistency_problems(rec.stage_seconds, rec.wall_seconds) == []
     assert rec.device_seconds > 0
     assert [e["backend"] for e in tel.events if e["name"] == "substream_match.backend"] == ["cuda"]
-    assert rec.roofline()["achieved_fraction"] > 0
+
+
+def test_pipeline_spans_on_card(cuda):
+    """The main path's spans on the card from a stream in pinned host
+    memory: the same matching with telemetry on and off, the stream copied
+    to the card (``stream.to`` from ``cpu``), then handed on to
+    ``substream_match`` (``stream.to`` from ``cuda:0`` onto ``cuda``), Part
+    1's device stage, and the same tree in the profiler's trace."""
+    import json
+    import tempfile
+
+    from repro_torch import obs
+
+    c = CASES["rmat10_L64"]()
+    host, cfg = _on(c, "cpu")
+    pinned = EdgeStream(*(t.pin_memory() for t in (host.src, host.dst, host.weight,
+                                                     host.valid)))
+    want = mwm_pipeline(pinned, cfg, part1="kernel")
+    tel = obs.Telemetry()
+    got = mwm_pipeline(pinned, cfg, part1="kernel", telemetry=tel)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    spans = [e for e in tel.tracer.events if e["ph"] == "X"]
+    assert [e["args"] for e in spans if e["name"] == "stream.to"] == [
+        {"bytes": pinned.nbytes, "source": "cpu", "target": "cuda"},
+        {"bytes": pinned.nbytes, "source": "cuda:0", "target": "cuda"},
+    ]
+    names = [e["name"] for e in spans]
+    assert names[-1] == "pipeline" and "kernel_edges.execute" in names
+    assert names.index("merge.d2h") < names.index("merge.order") < names.index("merge.greedy")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        mwm_pipeline(pinned, cfg, part1="kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/t.json")
+        with open(f"{tmp}/t.json") as f:
+            events = json.load(f)["traceEvents"]
+    ranges = [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
+              if e.get("cat") == "user_annotation" and e["name"].startswith("repro_torch/")]
+    assert sorted(ranges) == sorted(f"repro_torch/{n}" for n in names)
 
 
 @pytest.mark.parametrize("policy", ["strict", "sanitize"])

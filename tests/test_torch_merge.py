@@ -123,9 +123,23 @@ def test_merge_telemetry_matches_reference(name):
     merge_device(stream, result, cfg, telemetry=tel, device="cpu")
     jmerge.merge_device(js, jres, jcfg, telemetry=jtel)
     assert tel.counters.asdict() == jtel.counters.asdict()
-    names = [e["name"] for e in tel.chrome_trace()["traceEvents"]]
-    assert names == [e["name"] for e in jtel.chrome_trace()["traceEvents"]]
-    assert names == ["merge.host", "merge.device"]
+    events = tel.chrome_trace()["traceEvents"]
+
+    def inside(e, f):
+        return e is not f and f["ts"] <= e["ts"] and e["ts"] + e["dur"] <= f["ts"] + f["dur"]
+
+    top = [e["name"] for e in events if not any(inside(e, f) for f in events)]
+    assert top == [e["name"] for e in jtel.chrome_trace()["traceEvents"]]
+    assert top == ["merge.host", "merge.device"]
+    host = next(e for e in events if e["name"] == "merge.host")
+    children = [e for e in events if inside(e, host)]
+    assert [e["name"] for e in children] == ["merge.d2h", "merge.order", "merge.greedy"]
+    recorded = tel.counters.get("merge.recorded_edges")
+    assert [e["args"] for e in children] == [
+        {"bytes": result.assigned.nbytes},
+        {"recorded": recorded},
+        {"recorded": recorded, "matched": tel.counters.get("merge.matched_edges")},
+    ]
 
 
 @pytest.mark.parametrize("precomputed", [False, True])

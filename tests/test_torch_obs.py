@@ -9,8 +9,7 @@
 * the records of ``substream_match`` (both layouts, three schedules, on
   the CPU through the plain versions): disjoint stages inside the wall
   time, the reference's record keys, plan and schedule counters equal to a
-  recomputed plan, ``traffic.hbm_bytes`` from :func:`traffic_bytes`, and
-  the same results with telemetry on and off.
+  recomputed plan, and the same results with telemetry on and off.
 """
 import json
 import time
@@ -22,7 +21,6 @@ import torch
 
 from repro import obs as jobs
 from repro.graph import waves as jwaves
-from repro.launch import roofline as jroofline
 from repro_torch import obs
 from repro_torch.core import EdgeStream, SubstreamConfig
 from repro_torch.graph.waves import block_aligned_layout, schedule_counters, wave_schedule
@@ -34,10 +32,8 @@ from repro_torch.kernels.substream_match.ops import (
     mega_plan,
     plan_counters,
     substream_match,
-    traffic_bytes,
     wave_plan,
 )
-from repro_torch.launch import roofline
 
 
 def _workload(m=600, n=128, L=8, eps=0.1, seed=0):
@@ -223,8 +219,6 @@ def test_edges_counters_bit_exact_against_plan(packed):
     for k, v in plan_counters(plan).items():
         assert rec.counters[k] == v, k
     assert rec.counters["plan.bit_block_bytes"] == plan.nbytes
-    m = stream.num_edges
-    assert rec.counters["traffic.hbm_bytes"] == traffic_bytes(m, m, plan.width)
     assert "plan.gather_bytes" not in rec.counters
 
 
@@ -242,8 +236,6 @@ def test_wave_counters_bit_exact_against_plan(packed):
     for k, v in {**plan_counters(plan), **schedule_counters(sch)}.items():
         assert rec.counters[k] == v, k
     assert rec.counters["plan.gather_bytes"] == sch.slots.size * 20
-    assert rec.counters["traffic.hbm_bytes"] == traffic_bytes(
-        sch.slots.size, sch.num_scheduled, plan.width)
     # the schedule counters are the reference's, array for array
     jsch = jwaves.wave_schedule(src, dst, valid=valid)
     assert schedule_counters(sch) == jwaves.schedule_counters(jsch)
@@ -266,8 +258,6 @@ def test_mega_counters_bit_exact_against_plan(seg_block):
     assert rec.counters["layout.num_tiles"] == layout.num_tiles
     assert rec.counters["layout.padding_rows"] == layout.num_segments - sch.num_segments
     assert rec.counters["plan.seg_block"] == sb
-    assert rec.counters["traffic.hbm_bytes"] == traffic_bytes(
-        layout.slots.size, sch.num_scheduled, plan.width)
     jlayout = jwaves.block_aligned_layout(jwaves.wave_schedule(src, dst, valid=valid), sb)
     assert {k: rec.counters[k] for k in rec.counters if k.startswith("layout.")} == \
         jwaves.layout_counters(jlayout, jwaves.wave_schedule(src, dst, valid=valid))
@@ -328,27 +318,3 @@ def test_device_stage_labels_the_library_load():
     assert tel.counters.get("jit.variant_misses") == tel.counters.get("jit.variant_hits") == 1
     assert {e["name"] for e in tel.tracer.events} == {"probe.compile", "probe.execute"}
     assert kernel.EDGES_LIBRARY not in build.loaded()  # no nvcc on the CPU
-
-
-def test_roofline_matches_reference_model():
-    """The reference's model recast for the H100: its memory term at the
-    card's HBM rate, and no pipeline term (the reference's is a TPU cycle
-    count, never measured on the card), under the reference's keys."""
-    assert roofline.HBM_BW == 3.35e12
-    assert not hasattr(roofline, "SUBSTREAM_CYCLES_PER_EDGE")
-    for bpe in (0.0, 16.0, 48.0, 1e6):
-        terms = roofline.substream_bound(bpe)
-        assert terms["pipeline_edges_per_s"] == float("inf")
-        assert terms["memory_edges_per_s"] == (3.35e12 / bpe if bpe else float("inf"))
-        assert set(terms) == set(jroofline.substream_bound(bpe))
-        assert terms["bound_edges_per_s"] == terms["memory_edges_per_s"]
-        assert terms["dominant"] == "memory"
-    stream, cfg = _workload(m=600, n=128, L=8)
-    tel = obs.Telemetry()
-    substream_match(stream, cfg, schedule="mega", device="cpu", telemetry=tel)
-    terms = tel.match_calls[-1].roofline()
-    assert set(terms) == set(jroofline.substream_achieved(1.0, 16.0))
-    assert terms["bytes_per_edge"] == tel.match_calls[-1].counters["traffic.hbm_bytes"] / 600
-    assert 0 < terms["achieved_fraction"] < 1
-    assert terms["achieved_fraction"] == (
-        terms["achieved_edges_per_s"] / (3.35e12 / terms["bytes_per_edge"]))
