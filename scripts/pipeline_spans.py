@@ -18,7 +18,9 @@ the profiler's Chrome trace, and prints one JSON object (also written to
   window's first pass over the pool and in the rest (from the program's
   session, ``repro_torch.obs.profiler_session()``);
 * ``stream_to``: per source device of the ``stream.to`` spans, their
-  number, median length and the device copies that ran inside them.
+  number, median length and the device copies that ran inside them;
+* ``counters``: the program session's counters over the window (the
+  merge's route: ``merge.device.calls`` or ``merge.host.calls``, one a job).
 
 On the CPU (``--device cpu``) it runs the cell at its size too: keep to
 small cells there.
@@ -134,6 +136,7 @@ def main() -> int:
         "jobs": res["attempted"], "metrics": {k: v["value"] for k, v in res["metrics"].items()},
         "idle_gaps": gaps, "first_pass": _per_job(events, cell.pool), "stream_to": copies,
         "paired": len(to_spans) == len(to_ranges), "card": res.get("card"),
+        "counters": obs.profiler_session().counters.asdict(),
     }
     text = json.dumps(harness.finite(out))
     if args.out:

@@ -1,14 +1,16 @@
 """Part 2 (post processing): greedy merge of the L matchings into the MWM.
 
 The paper runs this on the CPU (<1 % of its time, little parallelism);
-so does :func:`merge_host`, in numpy on host copies of the tensors.
+so does :func:`merge_host`, in numpy on host copies of the tensors. It is
+the reference semantics and ``mwm_pipeline``'s merge on the CPU.
 Merging in "descending i, then stream order" is itself a greedy maximal
 matching under the total priority order ``(L-1-i, position)``, so a
 one-substream Part 1 over the recorded edges in :func:`merge_order`
 computes it: that is
 :func:`repro_torch.kernels.substream_match.ops.merge_device`, the merge on
-the card, which lives beside Part 1's entry because it launches Part 1's
-kernel (the JAX package keeps its ``merge_device`` here, over ``mwm_scan``).
+the card and ``mwm_pipeline``'s there, which lives beside Part 1's entry
+because it launches Part 1's kernel (the JAX package keeps its
+``merge_device`` here, over ``mwm_scan``).
 """
 from __future__ import annotations
 

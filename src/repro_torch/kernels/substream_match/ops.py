@@ -24,7 +24,8 @@ and observability layers of the JAX package: ``telemetry=``
 (the fallback ladder, :func:`_fallback_attempts`), and for the epochs
 ``snapshots=`` (:class:`repro_torch.checkpoint.snapshots.SnapshotManager`)
 and ``guard=`` (:class:`repro_torch.core.executor.ExecutionGuard`).
-:func:`merge_device` is Part 2 on the card, a one-substream Part 1. The
+:func:`merge_device` is Part 2 on the card, a one-substream Part 1 run
+through the per-edge engine below :func:`substream_match`. The
 kernels are launched through the module-level seams :func:`_edges_device`,
 :func:`_waves_device` and :func:`_mega_device`, which
 :func:`repro_torch.testing.faultline.failing` patches.
@@ -400,43 +401,57 @@ def merge_device(
 ) -> torch.Tensor:
     """Part 2 on the card: the bool [m] membership mask of T, bit-identical
     to :func:`repro_torch.core.merge.merge_host` (``torch.nonzero(mask)``
-    gives its indices).
+    gives its indices). ``mwm_pipeline`` merges with it on the card.
 
     The R recorded edges are put in merge order
     (:func:`repro_torch.core.merge.merge_order`) and run, with weight 1,
-    through Part 1 with one substream (``L = 1``, threshold 1):
-    :func:`substream_match`'s packed per-edge kernel on the card, its plain
-    version on the CPU. An edge enters T exactly when that run records it,
-    and the result is scattered back to stream positions. Only the recorded edges
-    go through the kernel: the JAX package's ``merge_device`` scans all m
-    edges with the rest marked invalid, which touches no bit either.
-    Reads only ``result.assigned`` (packed-safe). ``device=None`` runs on
-    the card. ``telemetry`` (resolved by :func:`repro_torch.obs.active`)
-    records one ``merge.device`` span and the ``merge.device.calls``
-    counter.
+    through Part 1 with one substream (``L = 1``, threshold 1): the packed
+    per-edge engine on the card, its plain version on the CPU. It is
+    launched below :func:`substream_match`, so Part 1's entry, its stage
+    spans, ``match_calls`` and backend event count Part 1 alone. An edge
+    enters T exactly when that run records it, and the result is scattered
+    back to stream positions. Only the recorded edges go through the
+    kernel: the JAX package's ``merge_device`` scans all m edges with the
+    rest marked invalid, which touches no bit either. Reads only
+    ``result.assigned`` (packed-safe). ``device=None`` runs on the card.
+
+    ``telemetry`` (resolved by :func:`repro_torch.obs.active`) records one
+    ``merge.device`` span holding ``merge.order`` (the recorded edges in
+    merge order and their endpoints; arg ``recorded``, R) and
+    ``merge.greedy`` (the one-substream run and the scatter; args
+    ``recorded`` and ``matched``), each synchronised, and the
+    ``merge.device.calls``, ``merge.recorded_edges`` and
+    ``merge.matched_edges`` counters.
     """
     dev = resolve_device(device)
     telemetry = obs.active(telemetry)
-    with telemetry.span("merge.device"):
+    with telemetry.span("merge.device", sync=dev):
         stream = stream.to(dev, telemetry=telemetry)
-        m = stream.num_edges
-        mask = torch.zeros(m, dtype=torch.bool, device=dev)
-        order = merge_order(result.with_assigned(result.assigned.to(dev)), cfg)
-        if order.numel():
+        with telemetry.span("merge.order", sync=dev) as span:
+            order = merge_order(result.with_assigned(result.assigned.to(dev)), cfg)
             r = order.numel()
-            one = EdgeStream(
-                src=stream.src[order], dst=stream.dst[order],
-                weight=torch.ones(r, dtype=torch.float32, device=dev),
-                valid=torch.ones(r, dtype=torch.bool, device=dev),
-            )
-            res = substream_match(
-                one, SubstreamConfig(n=cfg.n, L=1, eps=cfg.eps), device=dev, packed=True
-            )
-            mask[order] = res.assigned >= 0
-        if telemetry.enabled and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            if r:
+                src, dst = stream.src[order], stream.dst[order]
+            if telemetry.enabled:
+                span.note(recorded=r)
+        with telemetry.span("merge.greedy", sync=dev) as span:
+            mask = torch.zeros(stream.num_edges, dtype=torch.bool, device=dev)
+            if r and cfg.n:
+                one = EdgeStream(
+                    src=src, dst=dst,
+                    weight=torch.ones(r, dtype=torch.float32, device=dev),
+                    valid=torch.ones(r, dtype=torch.bool, device=dev),
+                )
+                res = _edges_entry(one, SubstreamConfig(n=cfg.n, L=1, eps=cfg.eps),
+                                   packed=True, telemetry=obs.DISABLED)
+                mask[order] = res.assigned >= 0
+            if telemetry.enabled:
+                matched = int(mask.sum())
+                span.note(recorded=r, matched=matched)
     if telemetry.enabled:
         telemetry.counters.add("merge.device.calls")
+        telemetry.counters.put("merge.recorded_edges", r)
+        telemetry.counters.put("merge.matched_edges", matched)
     return mask
 
 

@@ -593,9 +593,10 @@ def test_telemetry_records_on_card(cuda, schedule, packed):
 def test_pipeline_spans_on_card(cuda):
     """The main path's spans on the card from a stream in pinned host
     memory: the same matching with telemetry on and off, the stream copied
-    to the card (``stream.to`` from ``cpu``), then handed on to
-    ``substream_match`` (``stream.to`` from ``cuda:0`` onto ``cuda``), Part
-    1's device stage, and the same tree in the profiler's trace."""
+    to the card once (one ``stream.to``, from ``cpu``), Part 1's device
+    stage, Part 2 on the card (``merge.device`` holding ``merge.order`` and
+    ``merge.greedy``, then ``merge.d2h`` of the matched int64 indices; no
+    ``merge.host``), and the same tree in the profiler's trace."""
     import json
     import tempfile
 
@@ -613,11 +614,22 @@ def test_pipeline_spans_on_card(cuda):
     spans = [e for e in tel.tracer.events if e["ph"] == "X"]
     assert [e["args"] for e in spans if e["name"] == "stream.to"] == [
         {"bytes": pinned.nbytes, "source": "cpu", "target": "cuda"},
-        {"bytes": pinned.nbytes, "source": "cuda:0", "target": "cuda"},
     ]
     names = [e["name"] for e in spans]
     assert names[-1] == "pipeline" and "kernel_edges.execute" in names
-    assert names.index("merge.d2h") < names.index("merge.order") < names.index("merge.greedy")
+    assert "merge.host" not in names
+    merge = names[names.index("merge.order"):names.index("merge.d2h") + 1]
+    assert merge == ["merge.order", "merge.greedy", "merge.device", "merge.d2h"]
+    device = spans[names.index("merge.device")]
+    for inner in ("merge.order", "merge.greedy"):
+        e = spans[names.index(inner)]
+        assert device["ts"] <= e["ts"] and e["ts"] + e["dur"] <= device["ts"] + device["dur"]
+    assert spans[names.index("merge.d2h")]["args"] == {"bytes": 8 * len(got[0])}
+    assert tel.counters.get("merge.device.calls") == 1
+    assert tel.counters.get("merge.host.calls") == 0
+    assert tel.counters.get("merge.matched_edges") == len(got[0])
+    rec, = tel.match_calls
+    assert rec.engine == "kernel_edges"
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         mwm_pipeline(pinned, cfg, part1="kernel")
@@ -628,6 +640,47 @@ def test_pipeline_spans_on_card(cuda):
     ranges = [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
               if e.get("cat") == "user_annotation" and e["name"].startswith("repro_torch/")]
     assert sorted(ranges) == sorted(f"repro_torch/{n}" for n in names)
+
+
+@pytest.mark.parametrize("part1", ["scan", "waves", "blocked", "rounds"])
+def test_every_part1_merges_on_the_card(cuda, part1):
+    """Every ``part1`` on the card merges there (``merge_device`` once, no
+    ``merge_host``) and returns the CPU's indices and weight."""
+    from repro_torch import obs
+
+    c = CASES["bipartite"]()
+    tel = obs.Telemetry()
+    idx, weight = mwm_pipeline(*_on(c, "cpu"), part1=part1, device=cuda, telemetry=tel)
+    want_idx, want_weight = mwm_pipeline(*_on(c, "cpu"), part1=part1, device="cpu")
+    np.testing.assert_array_equal(idx, want_idx)
+    assert weight == want_weight
+    assert tel.counters.get("merge.device.calls") == 1
+    assert tel.counters.get("merge.host.calls") == 0
+
+
+def test_merge_peak_within_part1s_on_card(cuda):
+    """Part 2 on the card holds no more device memory than Part 1 did: the
+    peak over ``merge_device`` (the stream and ``assigned`` live, plus the
+    merge's R-sized arrays) is at most the peak over ``mwm_blocked``, on an
+    RMAT graph of scale 14."""
+    from repro_torch.core import merge_host, mwm_blocked
+    from repro_torch.kernels.substream_match.ops import merge_device
+
+    c = rmat_case(14, edge_factor=16, L=64, seed=7)
+    host, cfg = _on(c, "cpu")
+    stream = host.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = mwm_blocked(stream, cfg, backend="kernel", device=cuda)
+    torch.cuda.synchronize()
+    part1 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mask = merge_device(stream, res, cfg, device=cuda)
+    torch.cuda.synchronize()
+    merge = torch.cuda.max_memory_allocated()
+    assert merge <= part1, (merge, part1)
+    np.testing.assert_array_equal(torch.nonzero(mask).flatten().cpu().numpy(),
+                                  merge_host(stream, res, cfg))
 
 
 @pytest.mark.parametrize("policy", ["strict", "sanitize"])

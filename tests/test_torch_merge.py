@@ -142,6 +142,47 @@ def test_merge_telemetry_matches_reference(name):
     ]
 
 
+@pytest.mark.parametrize("via", ["session", "profiler"])
+@pytest.mark.parametrize("name", ["rmat9_L13", "rmat10_L64", "zoo_star", "zoo_empty"])
+def test_merge_device_runs_below_part1s_entry(name, via, monkeypatch):
+    """The merge's one-substream run is launched below ``substream_match``:
+    its spans are ``merge.device`` holding ``merge.order`` and
+    ``merge.greedy``, and nothing of Part 1's entry (no ``kernel_edges.*``
+    stage, no ``match_calls`` record, no backend event), whether the
+    session is passed or is the profiler's; and it still equals
+    ``merge_host``."""
+    from repro_torch.kernels.substream_match import ops
+
+    _, _, _, stream, cfg, result = _case(name)
+    want = merge_host(stream, result, cfg)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("merge_device called substream_match")
+
+    monkeypatch.setattr(ops, "substream_match", refuse)
+    if via == "session":
+        tel = obs.Telemetry()
+        mask = merge_device(stream, result, cfg, telemetry=tel, device="cpu")
+    else:
+        monkeypatch.setattr(obs, "_PROFILER_SESSION", None)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            mask = merge_device(stream, result, cfg, device="cpu")
+        tel = obs.profiler_session()
+    np.testing.assert_array_equal(torch.nonzero(mask).flatten().numpy(), want)
+    spans = {e["name"]: e for e in tel.tracer.events if e["ph"] == "X"}
+    assert sorted(spans) == ["merge.device", "merge.greedy", "merge.order"]
+    outer = spans["merge.device"]
+    for inner in (spans["merge.order"], spans["merge.greedy"]):
+        assert outer["ts"] <= inner["ts"] <= inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert spans["merge.order"]["ts"] + spans["merge.order"]["dur"] <= spans["merge.greedy"]["ts"]
+    recorded = int((result.assigned >= 0).sum())
+    assert spans["merge.order"]["args"] == {"recorded": recorded}
+    assert spans["merge.greedy"]["args"] == {"recorded": recorded, "matched": len(want)}
+    assert tel.match_calls == [] and tel.events == []
+    assert tel.counters.asdict() == {"merge.device.calls": 1, "merge.matched_edges": len(want),
+                                     "merge.recorded_edges": recorded}
+
+
 @pytest.mark.parametrize("precomputed", [False, True])
 @pytest.mark.parametrize("name", ["rmat9_L13", "rmat10_L64", "zoo_self_loops"])
 def test_mwm_waves_record_matches_reference(name, precomputed):

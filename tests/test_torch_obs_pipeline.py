@@ -101,8 +101,9 @@ KERNEL_TREE = [
 @pytest.mark.parametrize("packed", [True, False])
 def test_pipeline_span_tree_and_args(packed):
     """``cpu:0`` is not ``cpu`` to ``EdgeStream.to``: both copies it asks
-    for (``mwm_blocked``'s and ``substream_match``'s) are recorded, as a
-    stream on ``cuda:0`` asked onto ``cuda`` is on the card."""
+    for (``mwm_blocked``'s and ``substream_match``'s) are recorded. (On the
+    card ``mwm_pipeline`` copies the stream once and hands its own device,
+    ``cuda:0``, on, so Part 1 and the merge copy nothing.)"""
     stream, cfg = _case(seed=int(packed))
     tel = obs.Telemetry()
     idx, _ = mwm_pipeline(stream, cfg, part1="kernel", K=8, device="cpu:0", packed=packed,
@@ -158,6 +159,51 @@ def test_same_matching_with_telemetry_on_and_off(part1, kw, seed):
     np.testing.assert_array_equal(on[0], off[0])
     assert on[1] == off[1]
     assert [e["name"] for e in tel.tracer.events][-1] == "pipeline"
+
+
+@pytest.mark.parametrize("part1", ["scan", "waves", "blocked", "kernel", "rounds"])
+def test_the_cpu_route_merges_on_the_host(part1):
+    """Part 2 runs where Part 1's result lives: on the CPU every ``part1``
+    merges with ``merge_host`` (the reference semantics), never with
+    ``merge_device``, and copies nothing."""
+    stream, cfg = _case(m=300, n=64, L=8, seed=5)
+    tel = obs.Telemetry()
+    idx, _ = mwm_pipeline(stream, cfg, part1=part1, K=8, device="cpu", telemetry=tel)
+    names = {e["name"] for e in tel.tracer.events}
+    assert "merge.host" in names and not names & {"merge.device", "stream.to"}
+    assert tel.counters.get("merge.host.calls") == 1
+    assert tel.counters.get("merge.device.calls", None) is None
+    assert tel.counters.get("merge.matched_edges") == len(idx)
+
+
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_card_routes_merge_on_the_cpu(seed, empty):
+    """The card route's Part 2 (``merge_device``, then the matched indices
+    to the host) run on the CPU: ``merge_host``'s indices, under
+    ``merge.device`` (``merge.order``, ``merge.greedy``) and ``merge.d2h``
+    of 8 bytes a matched edge, with ``merge_host``'s counters."""
+    from repro_torch.core import _merge_on_device
+
+    stream, cfg = _case(m=400, n=72, L=8, seed=seed)
+    res = mwm_blocked(stream, cfg, K=8, backend="kernel", device="cpu")
+    if empty:
+        res = res.with_assigned(torch.full_like(res.assigned, -1))
+    host_tel, tel = obs.Telemetry(), obs.Telemetry()
+    want = merge_host(stream, res, cfg, telemetry=host_tel)
+    with tel.span("pipeline"):
+        idx = _merge_on_device(stream, res, cfg, tel)
+    assert idx.dtype == np.int64
+    np.testing.assert_array_equal(idx, want)
+    (_, _, (device, d2h)), = _tree(tel.tracer.events)
+    assert _names([device]) == [("merge.device", [("merge.order", []), ("merge.greedy", [])])]
+    recorded = host_tel.counters.get("merge.recorded_edges")
+    assert [args for _, args, _ in device[2]] == [
+        {"recorded": recorded}, {"recorded": recorded, "matched": len(want)}]
+    assert (d2h[0], d2h[1]) == ("merge.d2h", {"bytes": 8 * len(want)})
+    for name in ("merge.recorded_edges", "merge.matched_edges"):
+        assert tel.counters.get(name) == host_tel.counters.get(name)
+    assert tel.counters.get("merge.device.calls") == 1
 
 
 def test_merge_host_spans_on_an_empty_matching():
