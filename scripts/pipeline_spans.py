@@ -20,7 +20,10 @@ the profiler's Chrome trace, and prints one JSON object (also written to
 * ``stream_to``: per source device of the ``stream.to`` spans, their
   number, median length and the device copies that ran inside them;
 * ``counters``: the program session's counters over the window (the
-  merge's route: ``merge.device.calls`` or ``merge.host.calls``, one a job).
+  merge's route: ``merge.device.calls`` or ``merge.host.calls``, one a job);
+* ``blocks``: for Part 1's ``kernel_edges.execute`` and the merge's
+  ``merge.kernel``, their number and each distinct ``bit_block_bytes`` and
+  ``fits_l2`` they carried.
 
 On the CPU (``--device cpu``) it runs the cell at its size too: keep to
 small cells there.
@@ -71,6 +74,21 @@ def _per_job(events, pool):
                "later_ms": statistics.median(v[pool:]) if v[pool:] else None}
         for name, v in sorted(out.items())
     }
+
+
+def _blocks(events):
+    """{span: {"spans": count, "blocks": [[bit_block_bytes, fits_l2], ...]}}
+    of the spans that carry the bit block's size."""
+    out = {}
+    for e in events:
+        args = e.get("args") or {}
+        if "bit_block_bytes" in args:
+            row = out.setdefault(e["name"], {"spans": 0, "blocks": []})
+            row["spans"] += 1
+            block = [args["bit_block_bytes"], args.get("fits_l2")]
+            if block not in row["blocks"]:
+                row["blocks"].append(block)
+    return out
 
 
 def main() -> int:
@@ -137,6 +155,7 @@ def main() -> int:
         "idle_gaps": gaps, "first_pass": _per_job(events, cell.pool), "stream_to": copies,
         "paired": len(to_spans) == len(to_ranges), "card": res.get("card"),
         "counters": obs.profiler_session().counters.asdict(),
+        "blocks": _blocks(events),
     }
     text = json.dumps(harness.finite(out))
     if args.out:

@@ -418,10 +418,12 @@ def merge_device(
     ``telemetry`` (resolved by :func:`repro_torch.obs.active`) records one
     ``merge.device`` span holding ``merge.order`` (the recorded edges in
     merge order and their endpoints; arg ``recorded``, R) and
-    ``merge.greedy`` (the one-substream run and the scatter; args
-    ``recorded`` and ``matched``), each synchronised, and the
-    ``merge.device.calls``, ``merge.recorded_edges`` and
-    ``merge.matched_edges`` counters.
+    ``merge.greedy`` (the one-substream run's operands, its launch and the
+    scatter; args ``recorded`` and ``matched``), which holds
+    ``merge.kernel`` (the L = 1 launch alone, where R > 0; args
+    ``recorded``, ``bit_block_bytes`` and ``fits_l2`` of the L = 1 plan),
+    each synchronised, and the ``merge.device.calls``,
+    ``merge.recorded_edges`` and ``merge.matched_edges`` counters.
     """
     dev = resolve_device(device)
     telemetry = obs.active(telemetry)
@@ -442,9 +444,13 @@ def merge_device(
                     weight=torch.ones(r, dtype=torch.float32, device=dev),
                     valid=torch.ones(r, dtype=torch.bool, device=dev),
                 )
-                res = _edges_entry(one, SubstreamConfig(n=cfg.n, L=1, eps=cfg.eps),
-                                   packed=True, telemetry=obs.DISABLED)
-                mask[order] = res.assigned >= 0
+                one_cfg = SubstreamConfig(n=cfg.n, L=1, eps=cfg.eps)
+                args = kernel_inputs(one, one_cfg, None, True)
+                with telemetry.span("merge.kernel", sync=dev) as kernel_span:
+                    assigned, _ = _edges_device(args, True)
+                    if telemetry.enabled:
+                        kernel_span.note(recorded=r, **_block_args(device_plan(cfg.n, 1)))
+                mask[order] = assigned >= 0
             if telemetry.enabled:
                 matched = int(mask.sum())
                 span.note(recorded=r, matched=matched)
@@ -493,18 +499,32 @@ def _recorder(telemetry, engine: str, stream):
     return obs.recorder(telemetry, engine, stream.num_edges, dev.type, dev.type == "cpu")
 
 
+def _block_args(plan: DevicePlan) -> dict:
+    """The bit block's size and whether it fits the L2, as span arguments."""
+    return {"bit_block_bytes": int(plan.nbytes), "fits_l2": int(plan.fits_l2)}
+
+
 def _edges_entry(stream, cfg, *, packed, telemetry, mb0=None) -> MatchingResult:
     """The per-edge engine on a stream on its device. It has no host
-    scheduling, so its schedule and pack stages stay 0."""
+    scheduling, so its schedule and pack stages stay 0. Under an enabled
+    session the device stage's span carries ``edges``, ``bit_block_bytes``
+    and ``fits_l2``, and the ``stream.self_loops`` counter (valid edges
+    with ``src == dst``, which the kernel admits to no substream) is one
+    device reduction in the layout stage."""
     m = stream.num_edges
     rec = _recorder(telemetry, "kernel_edges", stream)
     with rec.stage("layout"):
         args = kernel_inputs(stream, cfg, mb0, packed)
+        if telemetry.enabled:
+            loops = int((stream.valid & (stream.src == stream.dst)).sum())
+    span_args = {}
     if telemetry.enabled:
         plan = device_plan(cfg.n, cfg.L, packed=packed)
         rec.put_many(plan_counters(plan))
         rec.put("stream.num_edges", m)
-    with rec.device_stage(_library(stream.device, _kernel.EDGES_LIBRARY)):
+        rec.put("stream.self_loops", loops)
+        span_args = {"edges": m, **_block_args(plan)}
+    with rec.device_stage(_library(stream.device, _kernel.EDGES_LIBRARY), **span_args):
         assigned, mb = rec.block(_edges_device(args, packed))
     rec.finish()
     return _result(assigned, mb, cfg, packed)

@@ -33,10 +33,18 @@ Or pass a session of your own::
     print(tel.match_calls[-1].stage_seconds)     # schedule/pack/layout/...
     tel.write_chrome_trace("trace.json")          # -> ui.perfetto.dev
 
-One ``pipeline`` span per ``mwm_pipeline`` call holds ``blocked``
-(``stream.to``, ``blocked.order``, ``blocked.permute``, Part 1's
-``kernel_edges.*`` stages, ``blocked.unpermute``), ``merge.host``
-(``merge.d2h``, ``merge.order``, ``merge.greedy``) and ``merge.weight``.
+One ``pipeline`` span per ``mwm_pipeline`` call holds, on the card, the
+stream's one ``stream.to``, ``blocked`` (``blocked.order``,
+``blocked.permute``, Part 1's ``kernel_edges.*`` stages,
+``blocked.unpermute``), ``merge.device`` (``merge.order``, then
+``merge.greedy`` holding ``merge.kernel``, the merge's L = 1 launch),
+``merge.d2h`` (the matched indices to the host) and ``merge.weight``; on
+the CPU ``blocked`` (with its ``stream.to`` where it copies),
+``merge.host`` (``merge.d2h``, ``merge.order``, ``merge.greedy``) and
+``merge.weight``. Part 1's device stage (``kernel_edges.execute``, or
+``.compile`` on the call that loads the library) carries ``edges``,
+``bit_block_bytes`` and ``fits_l2``, as ``merge.kernel`` carries
+``recorded`` and its own block's two.
 Under an enabled session a span that launches device work synchronises
 the device before it ends, so its length is its layer's time.
 

@@ -118,14 +118,16 @@ def consistency_problems(
 
 class _StageSpan:
     """Context manager crediting its duration to one recorder stage (and,
-    while the profiler records, a ``record_function`` range of its span)."""
+    while the profiler records, a ``record_function`` range of its span);
+    ``args`` go out with the stage's span."""
 
-    __slots__ = ("_rec", "_stage", "_name", "_t0", "_range")
+    __slots__ = ("_rec", "_stage", "_name", "_args", "_t0", "_range")
 
-    def __init__(self, rec: "MatchRecorder", stage: str):
+    def __init__(self, rec: "MatchRecorder", stage: str, args: dict | None = None):
         self._rec = rec
         self._stage = stage
         self._name = f"{rec.engine}.{stage}"
+        self._args = args
 
     def __enter__(self):
         self._range = open_range(self._name)
@@ -136,7 +138,7 @@ class _StageSpan:
         t1 = time.perf_counter()
         rec = self._rec
         rec.stage_seconds[self._stage] += t1 - self._t0
-        rec._telemetry.tracer.complete(self._name, self._t0, t1)
+        rec._telemetry.tracer.complete(self._name, self._t0, t1, self._args)
         close_range(self._range)
         return False
 
@@ -179,20 +181,21 @@ class MatchRecorder:
         self.counters: dict = {}
         self._t0 = time.perf_counter()
 
-    def stage(self, name: str) -> _StageSpan:
-        """``with rec.stage("layout"): ...``: credit the block to a stage."""
-        return _StageSpan(self, name)
+    def stage(self, name: str, **args) -> _StageSpan:
+        """``with rec.stage("layout"): ...``: credit the block to a stage;
+        ``args`` are the stage span's."""
+        return _StageSpan(self, name, args or None)
 
-    def device_stage(self, library=None) -> _StageSpan:
+    def device_stage(self, library=None, **args) -> _StageSpan:
         """Stage of the device call: ``compile`` when it will build or load
         the kernel library ``library`` (:data:`repro_torch.kernels.build`
         keeps what this process loaded), ``execute`` otherwise (and always
         for ``library=None``: the plain versions build nothing). Counts
         ``jit.variant_miss`` or ``jit.variant_hit`` (the JAX package's
-        names for its compile cache) to match."""
+        names for its compile cache) to match. ``args`` are the span's."""
         hit = _library_loaded(library)
         self.count("jit.variant_hit" if hit else "jit.variant_miss")
-        return self.stage("execute" if hit else "compile")
+        return self.stage("execute" if hit else "compile", **args)
 
     def add_stage(self, name: str, seconds: float):
         """Credit pre-measured seconds to a stage (the schedule and pack
@@ -246,10 +249,10 @@ class _NullRecorder:
 
     __slots__ = ()
 
-    def stage(self, name):
+    def stage(self, name, **args):
         return NULL_SPAN
 
-    def device_stage(self, library=None):
+    def device_stage(self, library=None, **args):
         return NULL_SPAN
 
     def add_stage(self, name, seconds):

@@ -31,6 +31,7 @@ from repro_torch.graph import waves
 from repro_torch.kernels import build
 from repro_torch.kernels.substream_match import kernel
 from repro_torch.kernels.substream_match.ops import (
+    device_plan,
     kernel_inputs,
     match_epochs,
     mega_inputs,
@@ -594,8 +595,9 @@ def test_pipeline_spans_on_card(cuda):
     """The main path's spans on the card from a stream in pinned host
     memory: the same matching with telemetry on and off, the stream copied
     to the card once (one ``stream.to``, from ``cpu``), Part 1's device
-    stage, Part 2 on the card (``merge.device`` holding ``merge.order`` and
-    ``merge.greedy``, then ``merge.d2h`` of the matched int64 indices; no
+    stage (with the edges and the bit block), Part 2 on the card
+    (``merge.device`` holding ``merge.order`` and ``merge.greedy`` with its
+    ``merge.kernel``, then ``merge.d2h`` of the matched int64 indices; no
     ``merge.host``), and the same tree in the profiler's trace."""
     import json
     import tempfile
@@ -619,11 +621,18 @@ def test_pipeline_spans_on_card(cuda):
     assert names[-1] == "pipeline" and "kernel_edges.execute" in names
     assert "merge.host" not in names
     merge = names[names.index("merge.order"):names.index("merge.d2h") + 1]
-    assert merge == ["merge.order", "merge.greedy", "merge.device", "merge.d2h"]
+    assert merge == ["merge.order", "merge.kernel", "merge.greedy", "merge.device", "merge.d2h"]
     device = spans[names.index("merge.device")]
-    for inner in ("merge.order", "merge.greedy"):
+    for inner, outer in (("merge.order", device), ("merge.greedy", device),
+                         ("merge.kernel", spans[names.index("merge.greedy")])):
         e = spans[names.index(inner)]
-        assert device["ts"] <= e["ts"] and e["ts"] + e["dur"] <= device["ts"] + device["dur"]
+        assert outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
+    block = {"bit_block_bytes": device_plan(cfg.n, cfg.L).nbytes, "fits_l2": 1}
+    assert spans[names.index("kernel_edges.execute")]["args"] == {
+        "edges": pinned.num_edges, **block}
+    assert spans[names.index("merge.kernel")]["args"] == {
+        "recorded": tel.counters.get("merge.recorded_edges"),
+        "bit_block_bytes": device_plan(cfg.n, 1).nbytes, "fits_l2": 1}
     assert spans[names.index("merge.d2h")]["args"] == {"bytes": 8 * len(got[0])}
     assert tel.counters.get("merge.device.calls") == 1
     assert tel.counters.get("merge.host.calls") == 0

@@ -22,7 +22,7 @@ from repro_torch.core import MatchingResult, merge_host, mwm_waves
 from repro_torch.core.merge import merge_order
 from repro_torch.kernels import build
 from repro_torch.kernels.substream_match import kernel
-from repro_torch.kernels.substream_match.ops import merge_device, substream_match
+from repro_torch.kernels.substream_match.ops import device_plan, merge_device, substream_match
 from repro_torch.testing.cases import WINDOW, ZOO, rmat_case
 
 CASES = {f"zoo_{k}": v for k, v in ZOO.items()}
@@ -147,7 +147,8 @@ def test_merge_telemetry_matches_reference(name):
 def test_merge_device_runs_below_part1s_entry(name, via, monkeypatch):
     """The merge's one-substream run is launched below ``substream_match``:
     its spans are ``merge.device`` holding ``merge.order`` and
-    ``merge.greedy``, and nothing of Part 1's entry (no ``kernel_edges.*``
+    ``merge.greedy`` (which holds the launch's ``merge.kernel`` where an
+    edge was recorded, with the L = 1 block's size), and nothing of Part 1's entry (no ``kernel_edges.*``
     stage, no ``match_calls`` record, no backend event), whether the
     session is passed or is the profiler's; and it still equals
     ``merge_host``."""
@@ -170,12 +171,21 @@ def test_merge_device_runs_below_part1s_entry(name, via, monkeypatch):
         tel = obs.profiler_session()
     np.testing.assert_array_equal(torch.nonzero(mask).flatten().numpy(), want)
     spans = {e["name"]: e for e in tel.tracer.events if e["ph"] == "X"}
-    assert sorted(spans) == ["merge.device", "merge.greedy", "merge.order"]
-    outer = spans["merge.device"]
-    for inner in (spans["merge.order"], spans["merge.greedy"]):
-        assert outer["ts"] <= inner["ts"] <= inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
-    assert spans["merge.order"]["ts"] + spans["merge.order"]["dur"] <= spans["merge.greedy"]["ts"]
     recorded = int((result.assigned >= 0).sum())
+    kernel = ["merge.kernel"] if recorded else []
+    assert sorted(spans) == ["merge.device", "merge.greedy", *kernel, "merge.order"]
+
+    def within(inner, outer):
+        return outer["ts"] <= inner["ts"] <= inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+    for inner in ("merge.order", "merge.greedy"):
+        assert within(spans[inner], spans["merge.device"])
+    assert spans["merge.order"]["ts"] + spans["merge.order"]["dur"] <= spans["merge.greedy"]["ts"]
+    if recorded:
+        plan = device_plan(cfg.n, 1)
+        assert within(spans["merge.kernel"], spans["merge.greedy"])
+        assert spans["merge.kernel"]["args"] == {
+            "recorded": recorded, "bit_block_bytes": plan.nbytes, "fits_l2": int(plan.fits_l2)}
     assert spans["merge.order"]["args"] == {"recorded": recorded}
     assert spans["merge.greedy"]["args"] == {"recorded": recorded, "matched": len(want)}
     assert tel.match_calls == [] and tel.events == []

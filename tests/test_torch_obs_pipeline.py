@@ -23,7 +23,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import EdgeStream, SubstreamConfig, merge_host, mwm_blocked, mwm_pipeline
-from repro_torch.kernels.substream_match.ops import merge_device, substream_match
+from repro_torch.kernels.substream_match.ops import device_plan, merge_device, substream_match
 from repro_torch.obs import trace as obs_trace
 
 STREAM_BYTES_PER_EDGE = 4 + 4 + 4 + 1  # src, dst int32, weight float32, valid bool
@@ -116,7 +116,12 @@ def test_pipeline_span_tree_and_args(packed):
                "target": "cpu:0"}
     assert stream.nbytes == to_args["bytes"]
     assert [args for name, args, _ in blocked[2] if name == "stream.to"] == [to_args] * 2
-    assert all(args is None for name, args, _ in blocked[2] if name != "stream.to")
+    plan = device_plan(cfg.n, cfg.L, packed=packed)
+    execute = {"edges": stream.num_edges, "bit_block_bytes": plan.nbytes,
+               "fits_l2": int(plan.fits_l2)}
+    assert [args for name, args, _ in blocked[2] if name == "kernel_edges.execute"] == [execute]
+    assert all(args is None for name, args, _ in blocked[2]
+               if name not in ("stream.to", "kernel_edges.execute"))
     assert blocked[1] is None and host[1] is None and weight[1] is None
     d2h, order, greedy = (args for _, args, _ in host[2])
     recorded = tel.counters.get("merge.recorded_edges")
@@ -181,8 +186,9 @@ def test_the_cpu_route_merges_on_the_host(part1):
 def test_the_card_routes_merge_on_the_cpu(seed, empty):
     """The card route's Part 2 (``merge_device``, then the matched indices
     to the host) run on the CPU: ``merge_host``'s indices, under
-    ``merge.device`` (``merge.order``, ``merge.greedy``) and ``merge.d2h``
-    of 8 bytes a matched edge, with ``merge_host``'s counters."""
+    ``merge.device`` (``merge.order``, ``merge.greedy`` holding
+    ``merge.kernel`` where an edge was recorded) and ``merge.d2h`` of 8
+    bytes a matched edge, with ``merge_host``'s counters."""
     from repro_torch.core import _merge_on_device
 
     stream, cfg = _case(m=400, n=72, L=8, seed=seed)
@@ -196,8 +202,9 @@ def test_the_card_routes_merge_on_the_cpu(seed, empty):
     assert idx.dtype == np.int64
     np.testing.assert_array_equal(idx, want)
     (_, _, (device, d2h)), = _tree(tel.tracer.events)
-    assert _names([device]) == [("merge.device", [("merge.order", []), ("merge.greedy", [])])]
     recorded = host_tel.counters.get("merge.recorded_edges")
+    kernel = [("merge.kernel", [])] if recorded else []
+    assert _names([device]) == [("merge.device", [("merge.order", []), ("merge.greedy", kernel)])]
     assert [args for _, args, _ in device[2]] == [
         {"recorded": recorded}, {"recorded": recorded, "matched": len(want)}]
     assert (d2h[0], d2h[1]) == ("merge.d2h", {"bytes": 8 * len(want)})
