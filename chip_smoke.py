@@ -44,12 +44,12 @@ configuration (Kronecker scale 20, edge factor 48, L=64, eps=0.1, K=32):
   ``mwm_rounds_sharded`` on a 1x1 NCCL mesh at scale 16, equal to
   ``mwm_rounds``;
 * the graph substrate: ``coarsen_by_matching`` on the paper stream
-  (through the packed per-edge kernel, counted) and at scale 12 equal to
+  (through the per-edge engine, counted: one call) and at scale 12 equal to
   the CPU run, ``gseq`` on a 20,000-edge prefix and the segment ops at
   scale 16, card against CPU; the main path on the flickr standin
   (``real_graph_standin``: n = 2^22, about 33 M edges), checked;
 * the GNN training path: the sampled GIN trainer on the paper graph
-  (``coarsen_by_matching`` through the packed per-edge kernel, counted,
+  (``coarsen_by_matching`` through the per-edge engine, counted,
   then sampled batches at the minibatch_lg dimensions, GIN at gin-tu's
   width, 5 AdamW steps, step 1 held to the CPU); GIN at gin-tu's width on
   the ogb_products dimensions (3 steps, ms per step, peak memory); EGNN,
@@ -116,6 +116,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: edges of the blocked paper stream on which the per-edge kernel meets its plain version
 PLAIN_PREFIX = 20_000
+#: device bytes an edge of the rounds engine's grouping moves at least (bound_rounds)
+ROUNDS_GROUPING_BYTES = 8 + 8 + 24 + 24
 #: edges of the generated paper stream on which the wave kernels meet theirs
 WAVE_PLAIN_PREFIX = 200_000
 #: the scale of the blocked-order route through the wave kernels
@@ -231,6 +233,16 @@ def bound(m, n_pad, width, packed=True):
     nbytes = m * 16 + n_pad * width
     ops = m * (8 if packed else 1) * width
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_rounds(m, n_pad, width):
+    """(bound_ms, bound_by) of the rounds engine on m edges: :func:`bound`'s
+    bytes plus the grouping's, each once: the int32 keys written and read
+    by the sort (8 B an edge each), the sorted keys and int64 indices the
+    sort writes and the engine reads (24 B an edge each)."""
+    t_bytes = (m * (16 + ROUNDS_GROUPING_BYTES) + n_pad * width) / HBM_BYTES_PER_S * 1e3
+    t_ops = m * 8 * width / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -385,16 +397,12 @@ def _window_cases():
     return cases
 
 
-def phase_kernel_vs_plain(paper, paper_cfg, K):
-    """Every case through the kernel and its plain version on the same
-    operands on the card; assigned and the bit block must be equal: the
+def _edge_cases(paper, paper_cfg, K):
+    """{name: (stream, cfg, mb0)} on the card for the per-edge engines: the
     zoo, the window cases, RMAT at L 13, 64, 300 and 2048, carried bits
     (also at L 2048), and the blocked paper prefix."""
-    import torch
-
     from repro_torch.core import lexicographic_order, permute_stream
-    from repro_torch.kernels.substream_match import kernel
-    from repro_torch.kernels.substream_match.ops import kernel_inputs, substream_match
+    from repro_torch.kernels.substream_match.ops import substream_match
     from repro_torch.testing.cases import WINDOW, ZOO, rmat_case
 
     cases = {f"zoo_{name}": _on_card(fn()) for name, fn in ZOO.items()}
@@ -412,9 +420,20 @@ def phase_kernel_vs_plain(paper, paper_cfg, K):
         cases[f"{label}_mb0"] = (_head(stream, h, stream.num_edges), cfg, mb0)
     blocked = permute_stream(paper, lexicographic_order(paper, K))
     cases["paper_blocked_prefix"] = (_head(blocked, 0, PLAIN_PREFIX), paper_cfg, None)
+    return cases
+
+
+def phase_kernel_vs_plain(paper, paper_cfg, K):
+    """Every case of :func:`_edge_cases` through the walker (row 1) and its
+    plain version on the same operands on the card; assigned and the bit
+    block must be equal."""
+    import torch
+
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import kernel_inputs
 
     results, max_err, timed = {}, 0, {}
-    for name, (stream, cfg, mb0) in cases.items():
+    for name, (stream, cfg, mb0) in _edge_cases(paper, paper_cfg, K).items():
         args = kernel_inputs(stream, cfg, mb0)
         a_k, mb_k = kernel.substream_match_packed(*args)
         t0 = time.perf_counter()
@@ -433,6 +452,87 @@ def phase_kernel_vs_plain(paper, paper_cfg, K):
     bad = [k for k, v in results.items() if not v["equal"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version on {bad}")
+    return max_err, timed
+
+
+def _launched(before):
+    """The launch counts added since ``before`` (a copy of ``build.launches``)."""
+    from repro_torch.kernels import build
+
+    return {k: v - before.get(k, 0) for k, v in build.launches.items() if v != before.get(k, 0)}
+
+
+def phase_rounds_engine(paper, paper_cfg, K):
+    """The rounds engine (the main path's Part 1 at L <= 64) bit for bit on
+    the card: against its plain version (row 1's) on every case of
+    :func:`_edge_cases` with L <= 64, the blocked paper prefix among them;
+    then against the walker (row 1) on the whole blocked paper stream, in
+    slices as the allocator's room gives them and in the floor's slices of
+    two chunks (a budget of 0), at L 13, and its second half from the first
+    half's bits. Each call launches one keys and one rounds kernel a slice.
+    Times both engines on the whole stream (CUDA events) and the rounds
+    engine at the prefix."""
+    import torch
+
+    from repro_torch.core import SubstreamConfig, lexicographic_order, permute_stream
+    from repro_torch.kernels import build
+    from repro_torch.kernels.substream_match import kernel
+    from repro_torch.kernels.substream_match.ops import kernel_inputs
+
+    def held(label, args, want, budget=None):
+        before, saved = dict(build.launches), kernel.group_budget
+        if budget is not None:
+            kernel.group_budget = lambda device: budget
+        try:
+            stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+            a, mb = kernel.substream_match_rounds(*args, stats=stats)
+            torch.cuda.synchronize()
+        finally:
+            kernel.group_budget = saved
+        launched = _launched(before)
+        slices = launched.get(kernel.ROUNDS_NAME, 0)
+        err = _compare(a, mb, *want)
+        chunks, rounds = stats.tolist()
+        results[label] = {"m": int(args[0].shape[0]), "L": 8 * args[2].shape[1],
+                          "equal": err == 0, "slices": slices, "chunks": chunks,
+                          "rounds": rounds, "launches": launched}
+        if err or launched != ({kernel.ROUNDS_NAME: slices, kernel.ROUNDS_KEYS_NAME: slices}
+                               if args[0].shape[0] else {}):
+            bad.append(label)
+        return err
+
+    results, bad, timed, max_err = {}, [], {}, 0
+    for name, (stream, cfg, mb0) in _edge_cases(paper, paper_cfg, K).items():
+        if cfg.L > 64:
+            continue
+        args = kernel_inputs(stream, cfg, mb0)
+        max_err = max(max_err, held(name, args, kernel.substream_match_packed_plain(*args)))
+        if name == "paper_blocked_prefix":
+            timed["ms_at_plain_m"], _ = cuda_ms(lambda: kernel.substream_match_rounds(*args),
+                                                reps=5)
+            timed["bound_ms_at_plain_m"] = bound_rounds(stream.num_edges, args[3],
+                                                        args[2].shape[1])[0]
+    blocked = permute_stream(paper, lexicographic_order(paper, K))
+    args = kernel_inputs(blocked, paper_cfg)
+    walker_ms, want = cuda_ms(lambda: kernel.substream_match_packed(*args))
+    max_err = max(max_err, held("paper_blocked", args, want),
+                  held("paper_blocked_floor_slices", args, want, budget=0))
+    timed["ms"], _ = cuda_ms(lambda: kernel.substream_match_rounds(*args), reps=5)
+    timed["walker_ms"] = walker_ms
+    timed["walker_bound_ms"], timed["walker_bound_by"] = bound(blocked.num_edges, args[3],
+                                                               args[2].shape[1])
+    h = blocked.num_edges // 2
+    head = kernel.substream_match_packed(args[0][:h], args[1][:h], *args[2:])
+    tail = (args[0][h:], args[1][h:], args[2], args[3], head[1])
+    max_err = max(max_err, held("paper_blocked_mb0", tail, kernel.substream_match_packed(*tail)))
+    del head, tail
+    args13 = kernel_inputs(blocked, SubstreamConfig(n=paper_cfg.n, L=13, eps=paper_cfg.eps))
+    max_err = max(max_err, held("paper_blocked_L13", args13,
+                                kernel.substream_match_packed(*args13)))
+    emit("rounds_engine", kernel=kernel.ROUNDS_NAME, cases=results, max_abs_err=max_err,
+         plain_m=PLAIN_PREFIX, blocked_m=blocked.num_edges, **timed)
+    if bad:
+        raise AssertionError(f"the rounds engine differs or miscounts on {bad}")
     return max_err, timed
 
 
@@ -506,9 +606,24 @@ def phase_wave_kernels_vs_plain(paper, paper_cfg):
     return {name: (max_err[name], timed[name]) for name in engines}
 
 
+def _main_path_launches(launches, label):
+    """Part 1 of the main path on the rounds engine (a keys and a rounds
+    launch a slice) and the merge's one walker launch (row 1 at L = 1),
+    nothing else. Returns the slices."""
+    from repro_torch.kernels.substream_match import kernel
+
+    slices = launches.get(kernel.ROUNDS_NAME, 0)
+    if slices < 1 or launches != {kernel.ROUNDS_NAME: slices, kernel.ROUNDS_KEYS_NAME: slices,
+                                  kernel.NAME: 1}:
+        raise AssertionError(f"{label}: Part 1 not on the rounds engine or the merge not one "
+                             f"{kernel.NAME} launch: {launches}")
+    return slices
+
+
 def phase_main_path(config, stream, cfg, gen_s, h2d_s):
-    """The main path once through the public entry point, counted; then the
-    same calls stage by stage, timed, and the result checked."""
+    """The main path once through the public entry point, counted (Part 1
+    on the rounds engine, the merge's walker launch apart); then the same
+    calls stage by stage, timed, and the result checked."""
     import torch
 
     from repro_torch.core import (
@@ -526,8 +641,7 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
     pipeline_s = time.perf_counter() - t0
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
-    if launches.get(kernel.NAME, 0) < 1:
-        raise AssertionError(f"the main path launched no {kernel.NAME}: {launches}")
+    slices = _main_path_launches(launches, "the main path")
 
     def sort():
         order = lexicographic_order(stream, config.K)
@@ -538,7 +652,7 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
     shares = window_share(args[0])
     kernel_runs = []
     for _ in range(3):
-        ms, (a_blk, mb) = cuda_ms(lambda: kernel.substream_match_packed(*args))
+        ms, (a_blk, mb) = cuda_ms(lambda: kernel.substream_match_rounds(*args))
         kernel_runs.append(ms)
     kernel_ms = sorted(kernel_runs)[1]
     plan = device_plan(cfg.n, cfg.L)
@@ -557,7 +671,7 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
     recorded = int((assigned >= 0).sum())
     if not (0 < idx.size <= recorded) or not weight > 0:
         raise AssertionError(f"implausible matching: {idx.size} edges, weight {weight}")
-    bound_ms, bound_by = bound(m, plan.n_pad, plan.width)
+    bound_ms, bound_by = bound_rounds(m, plan.n_pad, plan.width)
     emit("main_path", config=config.name, scale=config.scale, edge_factor=config.edge_factor,
          L=cfg.L, eps=cfg.eps, K=config.K, n=cfg.n, m=m,
          bit_block_bytes=plan.nbytes, fits_l2=plan.fits_l2,
@@ -566,12 +680,14 @@ def phase_main_path(config, stream, cfg, gen_s, h2d_s):
                   "kernel_runs": [t / 1e3 for t in kernel_runs],
                   "merge_host": merge_s, "check_matching": check_s},
          edges_per_s_pipeline=m / pipeline_s, edges_per_s_part1_kernel=m / (kernel_ms / 1e3),
-         ns_per_edge_kernel=kernel_ms * 1e6 / m, window_share=shares,
-         launches=launches, max_memory_allocated=peak,
+         ns_per_edge_kernel=kernel_ms * 1e6 / m, kernel=kernel.ROUNDS_NAME, window_share=shares,
+         launches=launches, part1_slices=slices, max_memory_allocated=peak,
          recorded_edges=recorded, matched_edges=int(idx.size), weight=weight,
          check_matching="passed")
     return {"m": m, "ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "launches": launches[kernel.NAME], "result": result, "idx": idx, "weight": weight,
+            "launches": slices, "keys_launches": launches[kernel.ROUNDS_KEYS_NAME],
+            "merge_launches": launches[kernel.NAME], "result": result, "idx": idx,
+            "weight": weight,
             "pipeline_s": pipeline_s, "merge_host_s": merge_s}
 
 
@@ -1246,7 +1362,6 @@ def phase_main_telemetry(config, stream, cfg, main):
     from repro_torch import obs
     from repro_torch.core import mwm_pipeline
     from repro_torch.kernels import build
-    from repro_torch.kernels.substream_match import kernel
 
     tel = obs.Telemetry()
     torch.cuda.synchronize()
@@ -1255,8 +1370,10 @@ def phase_main_telemetry(config, stream, cfg, main):
     idx, weight = mwm_pipeline(stream, cfg, part1="kernel", K=config.K, telemetry=tel)
     pipeline_s = time.perf_counter() - t0
     launches = dict(build.launches)
-    if launches.get(kernel.NAME, 0) < 1:
-        raise AssertionError(f"the telemetry run launched no {kernel.NAME}: {launches}")
+    _main_path_launches(launches, "the telemetry run")
+    routes = {k: tel.counters.get(f"kernel_edges.{k}.calls") for k in ("rounds_engine", "walker")}
+    if routes != {"rounds_engine": 1, "walker": 0} or tel.counters.get("kernel_edges.chunks") < 1:
+        raise AssertionError(f"the telemetry run's route counters: {routes}")
     if not (np.array_equal(idx, main["idx"]) and weight == main["weight"]):
         raise AssertionError("the main path with telemetry differs from the one without")
     rec, = tel.match_calls
@@ -1264,7 +1381,9 @@ def phase_main_telemetry(config, stream, cfg, main):
     emit("main_path_telemetry", record=rec.asdict(),
          consistency_problems=problems, events=tel.events,
          pipeline_seconds={"telemetry_on": pipeline_s, "telemetry_off": main["pipeline_s"]},
-         launches=launches)
+         launches=launches, routes=routes,
+         chunks=tel.counters.get("kernel_edges.chunks"),
+         rounds=tel.counters.get("kernel_edges.rounds"))
     if problems or rec.backend != stream.device.type or rec.engine != "kernel_edges":
         raise AssertionError(f"telemetry record: {rec.engine} {rec.backend} {problems}")
 
@@ -1390,7 +1509,7 @@ def phase_fallback():
         layout = "packed" if packed else "unpacked"
         want = substream_match(stream, cfg, packed=packed)
         mega, waves_k, edges_k = (name_of(k, packed) for k in ("mega", "waves", "edges"))
-        runs = {  # schedule, injection, fallback events, outcome, launches
+        runs = {  # schedule, injection, fallback events, outcome, launches (or their check)
             "mega_clean": ("mega", contextlib.nullcontext(), 0, "equal", {mega: 1}),
             "mega_refused_once": ("mega", faultline.flaky("mega_device", times=1,
                                                           exc_type=PlanRefusedError),
@@ -1402,16 +1521,18 @@ def phase_fallback():
                                   "raised: InjectedFailure", {}),
             "waves_clean": ("waves", contextlib.nullcontext(), 0, "equal", {waves_k: 1}),
             "waves_exhausted": ("waves", refused("wave_plan"), 1, "exhausted: waves", {}),
-            "edges_clean": ("edges", contextlib.nullcontext(), 0, "equal", {edges_k: 1}),
+            "edges_clean": ("edges", contextlib.nullcontext(), 0, "equal",
+                            _one_edges_call if packed else {edges_k: 1}),
             "edges_exhausted": ("edges", refused("edges_device"), 1, "exhausted: edges", {}),
         }
         for label, (schedule, inject, n_events, outcome, launches) in runs.items():
             out = ladder(stream, cfg, want, schedule, packed, inject,
                          waves=None if schedule == "edges" else sch)
             results[f"scale16_{layout}_{label}"] = out
+            launched_ok = (launches(out["launches"]) if callable(launches)
+                           else out["launches"] == launches)
             if (out["outcome"] != outcome or out["fallback_count"] != n_events
-                    or out["launches"] != launches
-                    or {"waves_xla", "scan"} & set(out["records"])):
+                    or not launched_ok or {"waves_xla", "scan"} & set(out["records"])):
                 problems.append(f"scale16_{layout}_{label}: {out}")
     wide = rmat_case(7, edge_factor=4, L=2049, eps=0.002, seed=9)
     wide_stream, wide_cfg, _ = _on_card(wide)
@@ -1683,7 +1804,6 @@ def phase_real_graph(config):
     from repro_torch.graph import PAPER_GRAPHS, real_graph_standin, uniform_weights
     from repro_torch.graph.generators import standin_shape
     from repro_torch.kernels import build
-    from repro_torch.kernels.substream_match import kernel
     from repro_torch.kernels.substream_match.ops import device_plan
 
     scale, edge_factor = standin_shape(REAL_GRAPH)
@@ -1700,8 +1820,7 @@ def phase_real_graph(config):
     idx, weight = mwm_pipeline(stream, cfg, part1="kernel", K=config.K)
     pipeline_s = time.perf_counter() - t0
     launches = dict(build.launches)
-    if launches.get(kernel.NAME, 0) < 1:
-        raise AssertionError(f"the main path on {REAL_GRAPH} launched no {kernel.NAME}: {launches}")
+    _main_path_launches(launches, f"the main path on {REAL_GRAPH}")
     res = mwm_blocked(stream, cfg, K=config.K, backend="kernel")
     if not np.array_equal(merge_host(stream, res, cfg), idx):
         raise AssertionError("the staged run disagrees with mwm_pipeline")
@@ -1720,7 +1839,7 @@ def phase_real_graph(config):
 
 def phase_substrate(config, stream, cfg):
     """The graph substrate on the card: ``coarsen_by_matching`` on the paper
-    stream (timed, counted: it launches the packed per-edge kernel) and at
+    stream (timed, counted: one call of the per-edge engine) and at
     COARSEN_CHECK_SCALE equal to the CPU run; ``gseq`` on a prefix, card
     against CPU; the segment ops at SEGMENT_SCALE, card against CPU (the
     maximum exact; atomics reorder the float32 sums, so a sum's error is
@@ -1733,7 +1852,6 @@ def phase_substrate(config, stream, cfg):
     from repro_torch.core.gseq import gseq_pass
     from repro_torch.core.types import to_numpy
     from repro_torch.kernels import build
-    from repro_torch.kernels.substream_match import kernel
 
     out = {}
     src, dst, w = (to_numpy(t) for t in (stream.src, stream.dst, stream.weight))
@@ -1743,8 +1861,8 @@ def phase_substrate(config, stream, cfg):
     mapping, lo, _, _ = graph.coarsen_by_matching(src, dst, w, cfg.n)
     coarsen_s = time.perf_counter() - t0
     launches = dict(build.launches)
-    if launches.get(kernel.NAME, 0) != 1:
-        raise AssertionError(f"coarsen_by_matching launched {launches}, not one {kernel.NAME}")
+    if not _one_edges_call(launches):
+        raise AssertionError(f"coarsen_by_matching launched {launches}, not one per-edge call")
     out["coarsen"] = {"scale": config.scale, "m": int(src.size), "seconds": coarsen_s,
                       "launches": launches, "coarse_n": int(mapping.max()) + 1,
                       "coarse_m": int(lo.size)}
@@ -1799,7 +1917,18 @@ def phase_substrate(config, stream, cfg):
     bad += [k for k, v in seg.items() if k != "degrees_equal" and not v.get("close", v.get("equal"))]
     if bad or not seg["degrees_equal"]:
         raise AssertionError(f"the substrate on the card differs from the CPU: {bad}")
-    return launches[kernel.NAME]
+    return sum(launches.values())
+
+
+def _one_edges_call(launches: dict) -> bool:
+    """One packed Part-1 call at L <= 64 on the card, as ``ops.edges_route``
+    sends it: the rounds engine's launches, one keys and one rounds launch
+    a slice, and nothing else."""
+    from repro_torch.kernels.substream_match import kernel
+
+    slices = launches.get(kernel.ROUNDS_NAME, 0)
+    return slices >= 1 and launches == {kernel.ROUNDS_NAME: slices,
+                                        kernel.ROUNDS_KEYS_NAME: slices}
 
 
 def _held_to_cpu(label, model, batch, step):
@@ -1830,7 +1959,7 @@ def _held_to_cpu(label, model, batch, step):
 def phase_gnn_sampled(config, stream, cfg):
     """GIN at gin-tu's width trained on sampled batches of the paper graph
     (the generated stream, symmetrized) at the minibatch_lg dimensions:
-    ``coarsen_by_matching`` (one launch of the packed per-edge kernel), the
+    ``coarsen_by_matching`` (one call of the per-edge engine), the
     CSR, the sampler (1,024 seeds, fanouts 15-10), then GNN_SAMPLED_STEPS
     AdamW steps; step 1's loss and gradients held to the CPU."""
     import numpy as np
@@ -1840,7 +1969,6 @@ def phase_gnn_sampled(config, stream, cfg):
     from repro_torch.configs.registry import sampled_subgraph_sizes
     from repro_torch.core.types import to_numpy
     from repro_torch.kernels import build
-    from repro_torch.kernels.substream_match import kernel
     from repro_torch.launch.gnn_train import SampledGINTrainer
     from repro_torch.launch.steps import gnn_shape_config
 
@@ -1880,11 +2008,11 @@ def phase_gnn_sampled(config, stream, cfg):
          m=stream.num_edges, n_pad=n_pad, e_pad=e_pad, coarsening=trainer.coarsening,
          seconds={"setup": setup_s, "csr_sampler": trainer.csr_seconds}, steps=steps,
          step1_vs_cpu=check, launches=launches)
-    if launches != {kernel.NAME: 1}:
-        raise AssertionError(f"the sampled trainer launched {launches}, not one {kernel.NAME}")
+    if not _one_edges_call(launches):
+        raise AssertionError(f"the sampled trainer launched {launches}, not one per-edge call")
     if not all(np.isfinite(s["loss"]) for s in steps):
         raise AssertionError(f"gnn_sampled: a loss is not finite: {steps}")
-    return launches[kernel.NAME]
+    return sum(launches.values())
 
 
 def phase_gnn_full():
@@ -2781,8 +2909,9 @@ def phase_examples():
     ratio, the H100 plan) and ``launch/matching_e2e.py`` (custom CSR,
     ``mwm_blocked(backend="kernel")``, the host merge, the straggler monitor,
     a checkpoint under ``build/`` and the restart), each with the launch
-    counts set to 0 just before it; row 1 must launch in both and each ratio
-    be at most 4 + eps. Returns row 1's launches of each."""
+    counts set to 0 just before it; the rounds engine (Part 1 at their
+    L <= 64) must launch in both and each ratio be at most 4 + eps. Returns
+    the rounds engine's launches of each."""
     import shutil
 
     from repro_torch.kernels import build
@@ -2801,13 +2930,13 @@ def phase_examples():
         launches[name] = dict(build.launches)
     shutil.rmtree(ckpt, ignore_errors=True)
     emit("examples", runs=runs, launches=launches)
-    row1 = {name: launches[name].get(kernel.NAME, 0) for name in runs}
+    rounds = {name: launches[name].get(kernel.ROUNDS_NAME, 0) for name in runs}
     bad = [name for name, r in runs.items()
-           if row1[name] <= 0 or not r["ratio"] <= r["bound"] + 1e-6]
+           if rounds[name] <= 0 or not r["ratio"] <= r["bound"] + 1e-6]
     if bad:
         raise AssertionError(f"examples {bad}: launches {launches}, "
                              f"ratios { {k: (r['ratio'], r['bound']) for k, r in runs.items()} }")
-    return row1
+    return rounds
 
 
 def main():
@@ -2829,6 +2958,7 @@ def main():
     phase_dryrun(phase_sharded_lm_train())
     config, stream, cfg, gen_s, h2d_s = paper_stream()
     max_err, timed = phase_kernel_vs_plain(stream, cfg, config.K)
+    rounds_err, rounds_timed = phase_rounds_engine(stream, cfg, config.K)
     wave_checks = phase_wave_kernels_vs_plain(stream, cfg)
     main = phase_main_path(config, stream, cfg, gen_s, h2d_s)
     wave, sch, mega_result = phase_wave_path(config, stream, cfg)
@@ -2863,12 +2993,14 @@ def main():
         "route": "cuda",
         "source": source + "substream_match_edges.cu",
         "replaces": "src/repro/kernels/substream_match/kernel.py:117",
-        "launches": main["launches"],
+        # on the main path the merge's L = 1 launch alone; ms: the whole
+        # blocked paper stream at L = 64, no longer the main path's Part 1
+        "launches": main["merge_launches"],
         "max_abs_err": max(max_err, merge["max_abs_err"]),
-        "ms": main["ms"],
+        "ms": rounds_timed["walker_ms"],
         "plain_ms": timed["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
+        "bound_ms": rounds_timed["walker_bound_ms"],
+        "bound_by": rounds_timed["walker_bound_by"],
         "library_ms": None,
         "m": main["m"],
         "plain_m": PLAIN_PREFIX,
@@ -2878,6 +3010,26 @@ def main():
         "launches_merge_device": merge["launches"],
         "merge_device_recorded_edges": merge["recorded_edges"],
         "merge_device_ms_L1": merge["ms"],
+    }, {
+        "name": kernel.ROUNDS_NAME,
+        "route": "cuda",
+        "source": source + "substream_match_edges.cu",
+        "replaces": None,  # row 1's function at L <= 64: the main path's Part 1
+        "launches": main["launches"],
+        "launches_keys": main["keys_launches"],
+        "max_abs_err": rounds_err,
+        "ms": main["ms"],
+        "plain_ms": timed["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_call": "torch.sort (stable, int32 keys), once a slice",
+        "m": main["m"],
+        "plain_m": PLAIN_PREFIX,
+        "ms_at_plain_m": rounds_timed["ms_at_plain_m"],
+        "bound_ms_at_plain_m": rounds_timed["bound_ms_at_plain_m"],
+        "matched_plain": rounds_err == 0,
+        "ms_whole_stream_apart": rounds_timed["ms"],
         "launches_coarsen_by_matching": coarsen_launches,
         "launches_gnn_train": gnn_launches,
         "launches_examples": example_launches,

@@ -1,4 +1,5 @@
-// Per-edge substream matchers (Listing 1 Part 1, §4.4) in both layouts of the bit block.
+// Per-edge substream matchers (Listing 1 Part 1, §4.4) in both layouts of the bit block, and
+// a second engine for the same contract on the whole card (the rounds engine, at the end).
 //
 // Replaces the TPU kernels `_kernel_packed` (src/repro/kernels/substream_match/kernel.py:117,
 // uint8 bit planes: bit j of word k = substream 8k+j) and `_kernel` (kernel.py:74, one int8
@@ -426,4 +427,366 @@ extern "C" int substream_match_unpacked(const void* edges, const void* weights, 
                                         void* mb, void* assigned, long long m, int width,
                                         int pitch, void* stream) {
   return launch<Layout::kUnpacked>(edges, weights, thr, mb, assigned, m, width, pitch, stream);
+}
+
+// ---------------------------------------------------------------------------------------------
+// The rounds engine: the packed contract above for rows of one 64-bit word (L <= 64), computed
+// on the whole card in place of one CTA's walk.
+//
+// It replaces no TPU kernel; it computes what `_kernel_packed` computes. Greedy matching under
+// a fixed order is the fixed point of rounds: every live edge that is the least live edge at
+// both its endpoints joins, and the edges it touches die. Each substream is one bit of a word,
+// so the 64 substreams run such rounds side by side. The stream is taken in chunks of `chunk`
+// consecutive edges (at most kRoundChunk); chunk k starts from the bit block that chunks < k
+// left, so the fixed point is the sequential scan's, bit for bit, in `assigned` and in `mb`.
+// Within a chunk every edge has a live word U = te & ~mb[u] & ~mb[v], and its 2 * chunk
+// incidences (vertex, rank) arrive grouped by vertex in rank order (the caller's stable sort
+// of substream_match_rounds_keys' keys). A round is two phases between grid barriers:
+//   A  kill U &= ~(mb[u] | mb[v]); a segmented exclusive OR-scan of U along each vertex's run
+//      gives B_u and B_v, the bits live at an earlier edge of the vertex;
+//   B  win = U & ~B_u & ~B_v; mb[u] |= win, mb[v] |= win (64-bit atomicOr: winners at one
+//      vertex hold disjoint bits, so the order is free); assigned = max(assigned, top bit).
+// A chunk ends after a B that leaves no edge a bit it did not win, or after an A that finds no
+// live edge. The grid is kRoundBlocks CTAs at most, all resident (a cooperative launch; on a
+// card that holds fewer, substream_match_rounds_blocks says how many, and the caller's chunk
+// shrinks to fit them); each holds kRoundTile incidences of the chunk in registers, kRoundItems consecutive positions a
+// thread, for all the chunk's rounds, so a round reads only the bit-block rows of live edges
+// and the B_v word of each live edge. The scan is the thread's items, then the warps, then the
+// CTAs by a decoupled look-back over per-CTA aggregates, published with an epoch (one a round)
+// so no flag is ever reset. No host wait: the chunk and round loops run on the device.
+//
+// Bound. The bytes are the per-edge kernel's (edges, weights, assigned, the block once) plus
+// the grouping (keys, sorted keys, the sort's indices); what limits it is one grid barrier and
+// one L2 or HBM round trip to the rows per phase, a few rounds a chunk.
+
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kRoundThreads = 512;
+constexpr int kRoundItems = 4;
+constexpr int kRoundTile = kRoundThreads * kRoundItems;  // incidences per CTA and chunk
+constexpr int kRoundBlocks = 128;
+constexpr int kRoundChunk = 131072;                      // edges per chunk, at most
+constexpr int kRoundWarps = kRoundThreads / 32;
+static_assert(2 * kRoundChunk == kRoundBlocks * kRoundTile,
+              "the grid holds one chunk's incidences in registers");
+// The int64 scratch the wrapper passes, zeroed before each launch but `bv`: [0, kRoundChunk)
+// bv; then per CTA agg, agg_state, incl, incl_state; then 4 counters (live, rest, barrier).
+// live and rest hold the last epoch in which some CTA had a live edge, or an edge with bits left
+// after B: a flag stamped with its epoch, not a count, because a CTA that leaves a chunk after A
+// may stamp the next chunk's first A before a slower CTA has read this one's (a count would then
+// tell the slower CTA that this round had a live edge, and the grid would leave step).
+
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
+// All CTAs meet: the count `bar` only grows, by gridDim.x a barrier.
+__device__ __forceinline__ void grid_barrier(unsigned long long* bar, unsigned long long& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1ull);
+    while (ld_acquire(bar) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// (head, OR) pairs of a segmented OR-scan: (h, v) followed by (bh, bv). A head restarts the OR.
+__device__ __forceinline__ void seg_append(bool& h, unsigned long long& v, bool bh,
+                                           unsigned long long bv) {
+  v = bh ? bv : (v | bv);
+  h = h || bh;
+}
+
+// The substreams whose threshold w reaches. Sorted thresholds make it a prefix of the word
+// (binary search); any others are compared one by one. nvalid = 8 * width substreams.
+__device__ __forceinline__ unsigned long long eligible(float w, const float* thr, int nvalid,
+                                                       bool sorted) {
+  if (sorted) {
+    int lo = 0, hi = nvalid;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (thr[mid] <= w) lo = mid + 1; else hi = mid;
+    }
+    return lo >= 64 ? ~0ull : ((1ull << lo) - 1);
+  }
+  unsigned long long te = 0;
+  for (int s = 0; s < nvalid; ++s) te |= static_cast<unsigned long long>(w >= thr[s]) << s;
+  return te;
+}
+
+// Keys of the grouping: incidence i (edge i / 2, side i % 2) of the slice gets
+// (chunk of its edge) << vbits | its vertex.
+__global__ void substream_match_rounds_keys_kernel(const int32_t* __restrict__ edges,
+                                                   int32_t* __restrict__ keys, long long n,
+                                                   int chunk, int vbits) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x)
+    keys[i] = static_cast<int32_t>(((i >> 1) / chunk) << vbits) | edges[i];
+}
+
+// One slice of E edges in chunks of `chunk`. keys/perm: the slice's incidences sorted by
+// (chunk, vertex), stable (perm[p] = the incidence at position p). mb: [n_pad] words.
+__global__ void __launch_bounds__(kRoundThreads, 1) substream_match_rounds_kernel(
+    const int32_t* __restrict__ edges, const float* __restrict__ weights,
+    const float* __restrict__ thr, unsigned long long* mb, int32_t* __restrict__ assigned,
+    const int32_t* __restrict__ keys, const int64_t* __restrict__ perm, long long E, int chunk,
+    int width, int vbits, unsigned long long* scratch, long long* stats) {
+  __shared__ float s_thr[64];
+  __shared__ bool s_sorted;
+  __shared__ bool s_warp_h[kRoundWarps];
+  __shared__ unsigned long long s_warp_v[kRoundWarps];
+  __shared__ unsigned long long s_carry;
+
+  unsigned long long* bv = scratch;
+  unsigned long long* agg = scratch + kRoundChunk;
+  unsigned long long* agg_state = agg + kRoundBlocks;  // epoch << 1 | has a head
+  unsigned long long* incl = agg_state + kRoundBlocks;
+  unsigned long long* incl_state = incl + kRoundBlocks;  // epoch
+  unsigned long long* counters = incl_state + kRoundBlocks;  // live, rest, barrier
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, b = blockIdx.x;
+  const int nvalid = 8 * width;
+  if (tid < 64) s_thr[tid] = tid < nvalid ? thr[(tid & 7) * width + (tid >> 3)] : CUDART_INF_F;
+  __syncthreads();
+  if (tid == 0) {
+    bool sorted = true;
+    for (int s = 0; s < nvalid; ++s)
+      sorted = sorted && s_thr[s] == s_thr[s] && (s == 0 || s_thr[s - 1] <= s_thr[s]);
+    s_sorted = sorted;
+  }
+  __syncthreads();
+  const bool sorted = s_sorted;
+  const int32_t vmask = static_cast<int32_t>((1u << vbits) - 1);
+
+  unsigned long long barrier = 0, epoch = 0;
+  long long rounds = 0;
+  const long long nchunks = (E + chunk - 1) / chunk;
+  for (long long k = 0; k < nchunks; ++k) {
+    const long long e0 = k * chunk;
+    const int npos = 2 * static_cast<int>(min(static_cast<long long>(chunk), E - e0));
+    const int first_pos = b * kRoundTile + tid * kRoundItems;  // chunk-local
+    const int32_t* ck = keys + 2 * e0;
+    const long long* cp = reinterpret_cast<const long long*>(perm) + 2 * e0;
+    // This thread's incidences, for all the chunk's rounds: vertex x, other end y, edge el
+    // (chunk-local), side, whether it heads its vertex's run, and the live word.
+    int x[kRoundItems], y[kRoundItems], el[kRoundItems];
+    bool side1[kRoundItems], head[kRoundItems], in[kRoundItems];
+    unsigned long long val[kRoundItems], bits[kRoundItems];
+    int32_t prev_key = first_pos > 0 && first_pos <= npos ? __ldg(ck + first_pos - 1) : -1;
+#pragma unroll
+    for (int i = 0; i < kRoundItems; ++i) {
+      const int p = first_pos + i;
+      in[i] = p < npos;
+      x[i] = y[i] = el[i] = 0;
+      side1[i] = false;
+      head[i] = true;
+      val[i] = 0;
+      if (in[i]) {
+        const int32_t key = __ldg(ck + p);
+        const long long j = __ldg(cp + p) - 2 * e0;
+        el[i] = static_cast<int>(j >> 1);
+        side1[i] = j & 1;
+        x[i] = key & vmask;
+        head[i] = p == 0 || key != prev_key;
+        prev_key = key;
+        y[i] = __ldg(edges + 2 * (e0 + el[i]) + (side1[i] ? 0 : 1));
+        val[i] = x[i] != y[i] ? eligible(__ldg(weights + e0 + el[i]), s_thr, nvalid, sorted) : 0;
+      }
+    }
+    for (bool first = true;; first = false) {
+      ++epoch;
+      // A: kill, then the scan.
+      bool live = false;
+#pragma unroll
+      for (int i = 0; i < kRoundItems; ++i) {
+        if (val[i]) val[i] &= ~(__ldcg(mb + x[i]) | __ldcg(mb + y[i]));
+        live = live || val[i] != 0;
+      }
+      bool th = false;
+      unsigned long long tv = 0;
+#pragma unroll
+      for (int i = 0; i < kRoundItems; ++i) seg_append(th, tv, head[i], val[i]);
+      // the warp's inclusive scan of the threads' (head, OR) pairs, then its exclusive one
+      bool h = th;
+      unsigned long long v = tv;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const bool oh = __shfl_up_sync(kFull, static_cast<int>(h), off);
+        const unsigned long long ov = __shfl_up_sync(kFull, v, off);
+        if (lane >= off) {
+          v = h ? v : (v | ov);
+          h = h || oh;
+        }
+      }
+      if (lane == 31) {
+        s_warp_h[warp] = h;
+        s_warp_v[warp] = v;
+      }
+      bool eh = __shfl_up_sync(kFull, static_cast<int>(h), 1);
+      unsigned long long ev = __shfl_up_sync(kFull, v, 1);
+      if (lane == 0) {
+        eh = false;
+        ev = 0;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        bool wh = lane < kRoundWarps ? s_warp_h[lane] : false;
+        unsigned long long wv = lane < kRoundWarps ? s_warp_v[lane] : 0;
+#pragma unroll
+        for (int off = 1; off < kRoundWarps; off <<= 1) {
+          const bool oh = __shfl_up_sync(kFull, static_cast<int>(wh), off);
+          const unsigned long long ov = __shfl_up_sync(kFull, wv, off);
+          if (lane >= off) {
+            wv = wh ? wv : (wv | ov);
+            wh = wh || oh;
+          }
+        }
+        if (lane == kRoundWarps - 1) {
+          // the CTA's aggregate: published for the CTAs after it
+          agg[b] = wv;
+          st_release(agg_state + b, epoch << 1 | (wh ? 1 : 0));
+          if (wh) {
+            incl[b] = wv;
+            st_release(incl_state + b, epoch);
+          }
+          // the look-back: the OR of the CTAs before back to the first with a head
+          unsigned long long carry = 0;
+          for (int j = b - 1; j >= 0; --j) {
+            unsigned long long st;
+            do {
+              st = ld_acquire(agg_state + j);
+            } while ((st >> 1) != epoch);
+            if (ld_acquire(incl_state + j) == epoch) {
+              carry |= __ldcg(incl + j);
+              break;
+            }
+            carry |= __ldcg(agg + j);
+            if (st & 1) break;
+          }
+          if (!wh) {
+            incl[b] = carry | wv;
+            st_release(incl_state + b, epoch);
+          }
+          s_carry = carry;
+        }
+        // the exclusive prefix of warp `lane`, for the warps of the CTA
+        const bool pwh = __shfl_up_sync(kFull, static_cast<int>(wh), 1);
+        const unsigned long long pwv = __shfl_up_sync(kFull, wv, 1);
+        __syncwarp();
+        if (lane < kRoundWarps) {
+          s_warp_h[lane] = lane > 0 && pwh;
+          s_warp_v[lane] = lane > 0 ? pwv : 0;
+        }
+      }
+      __syncthreads();
+      // this thread's exclusive prefix in the chunk: the CTA's carry, the warps before, the
+      // lanes before
+      bool ph = false;
+      unsigned long long run = s_carry;
+      seg_append(ph, run, s_warp_h[warp], s_warp_v[warp]);
+      seg_append(ph, run, eh, ev);
+#pragma unroll
+      for (int i = 0; i < kRoundItems; ++i) {
+        if (head[i]) run = 0;
+        bits[i] = run;
+        run |= val[i];
+        if (val[i] && side1[i]) __stcg(bv + el[i], bits[i]);
+      }
+      live = __syncthreads_or(live);
+      if (tid == 0 && live) atomicMax(counters, epoch);
+      grid_barrier(counters + 2, barrier);
+      const bool any_live = __ldcg(counters) == epoch;
+      if (!any_live && !first) break;
+      rounds += any_live;
+      // B: the winners, from the side-0 incidence of each edge.
+      bool rest = false;
+#pragma unroll
+      for (int i = 0; i < kRoundItems; ++i) {
+        if (!in[i] || side1[i]) continue;
+        unsigned long long win = 0;
+        if (val[i]) {
+          win = val[i] & ~bits[i] & ~__ldcg(bv + el[i]);
+          if (win) {
+            atomicOr(mb + x[i], win);
+            atomicOr(mb + y[i], win);
+          }
+          rest = rest || (val[i] & ~win) != 0;
+        }
+        const int top = win ? 63 - __clzll(static_cast<long long>(win)) : -1;
+        int32_t* a = assigned + e0 + el[i];
+        if (first) *a = top;
+        else if (top > *a) *a = top;
+      }
+      rest = __syncthreads_or(rest);
+      if (tid == 0 && rest) atomicMax(counters + 1, epoch);
+      grid_barrier(counters + 2, barrier);
+      const bool more = __ldcg(counters + 1) == epoch;
+      if (!more) break;
+    }
+  }
+  if (b == 0 && tid == 0) {
+    stats[0] += nchunks;
+    stats[1] += rounds;
+  }
+}
+
+}  // namespace
+
+// The grouping keys of a slice's 2 * E incidences (edges: its [E, 2] pairs).
+extern "C" int substream_match_rounds_keys(const void* edges, void* keys, long long E, int chunk,
+                                           int vbits, void* stream) {
+  if (E <= 0) return 0;
+  if (chunk <= 0 || vbits < 1 || vbits > 31 || (E - 1) / chunk >= (1ll << (31 - vbits)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = 2 * E;
+  const int blocks = static_cast<int>(min(4096ll, (n + 255) / 256));
+  substream_match_rounds_keys_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(edges), static_cast<int32_t*>(keys), n, chunk, vbits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the rounds engine the current device holds resident at once, at most kRoundBlocks
+// (0 where it takes no cooperative launch): the chunk is at most that times kRoundTile / 2.
+extern "C" int substream_match_rounds_blocks(int* blocks) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, substream_match_rounds_kernel,
+                                                        kRoundThreads, 0);
+  *blocks = err == cudaSuccess && coop ? min(kRoundBlocks, per_sm * sms) : 0;
+  return static_cast<int>(err);
+}
+
+// One slice through the rounds engine on `stream`: a cooperative launch of
+// ceil(2 * chunk / kRoundTile) CTAs. thr is [8, width] (width <= 8 words), mb [n_pad] 64-bit
+// rows, scratch as above (all but bv zero), stats [2] (chunks,
+// rounds; added to). Returns the launch's error (0 on success).
+extern "C" int substream_match_rounds(const void* edges, const void* weights, const void* thr,
+                                      void* mb, void* assigned, const void* keys,
+                                      const void* perm, long long E, int chunk, int width,
+                                      int vbits, void* scratch, void* stats, void* stream) {
+  if (E <= 0) return 0;
+  if (chunk <= 0 || chunk > kRoundChunk || width < 0 || width > 8 || vbits < 1 || vbits > 31 ||
+      (E - 1) / chunk >= (1ll << (31 - vbits)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (2 * chunk + kRoundTile - 1) / kRoundTile;
+  void* args[] = {&edges, &weights, &thr, &mb, &assigned, &keys, &perm, &E, &chunk,
+                  &width, &vbits, &scratch, &stats};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&substream_match_rounds_kernel), dim3(blocks),
+      dim3(kRoundThreads), args, 0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

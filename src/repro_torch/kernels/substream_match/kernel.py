@@ -9,6 +9,9 @@ when non-zero).
 * :func:`substream_match_packed`, the per-edge processor ``_kernel_packed``
   (``:117``), and :func:`substream_match_unpacked`, the per-edge processor
   ``_kernel`` (``:74``), launch ``csrc/substream_match_edges.cu``;
+  :func:`substream_match_rounds` computes ``_kernel_packed``'s function
+  for rows of one 64-bit word on the whole card (chunked bit-parallel
+  rounds) and launches the same library;
 * :func:`substream_match_mega`, the tile megakernel
   ``_kernel_waves_mega_packed`` (``:519``), and :func:`substream_match_waves`,
   the segment kernel ``_kernel_waves_packed`` (``:243``), and with
@@ -48,6 +51,31 @@ EDGE_BATCH = 32
 EDGE_PREFETCH = 1
 EDGE_CHUNK_BITS = 64
 EDGE_STAGE_EDGES = 1024
+#: The rounds engine of the same source (and library): the stream in chunks
+#: of at most ``EDGE_ROUNDS_CHUNK`` edges, each grouped by vertex and matched
+#: in bit-parallel rounds by at most ``EDGE_ROUNDS_BLOCKS`` resident CTAs of
+#: ``EDGE_ROUNDS_THREADS`` threads, ``EDGE_ROUNDS_ITEMS`` incidences a thread
+#: (a card that holds fewer CTAs gets shorter chunks, :func:`rounds_blocks`).
+#: Its two launches are counted apart: the grouping keys and the rounds.
+ROUNDS_NAME = "substream_match_rounds"
+ROUNDS_KEYS_NAME = "substream_match_rounds_keys"
+EDGE_ROUNDS_THREADS = 512
+EDGE_ROUNDS_ITEMS = 4
+EDGE_ROUNDS_BLOCKS = 128
+EDGE_ROUNDS_CHUNK = 131072
+#: widest row it takes, in uint8 words: one 64-bit word (L <= 64)
+ROUNDS_MAX_WIDTH = 8
+#: int64 words of its scratch: the B_v word of each edge of a chunk, four
+#: words of look-back state per CTA, four counters
+ROUNDS_SCRATCH_WORDS = EDGE_ROUNDS_CHUNK + 4 * EDGE_ROUNDS_BLOCKS + 4
+#: Device bytes an edge of a slice takes while the slice is grouped: its two
+#: int32 keys (8 B) and what ``torch.sort`` takes beyond them, 32.2 B a key
+#: on the card (the sorted keys, the int64 indices, the int64 identity it
+#: sorts with them, the radix sort's alternate buffers).
+ROUNDS_GROUP_BYTES = 73
+#: Chunks a slice holds even where the allocator's peak leaves no room for
+#: them (19 MB of grouping at 131,072-edge chunks).
+ROUNDS_MIN_SLICE_CHUNKS = 2
 #: the four wave kernels share one source (and one library)
 MEGA_NAME = "substream_match_mega"
 WAVES_NAME = "substream_match_waves"
@@ -80,6 +108,54 @@ MAX_UNPACKED_WIDTH = 2048
 #: is the sacrificial row every padding slot points at; the band is 8
 #: rows to keep the row count a multiple of 8.
 SACRIFICIAL_ROWS = 8
+
+
+def rounds_geometry(m: int, n_pad: int, budget: int = 0,
+                    blocks: int = EDGE_ROUNDS_BLOCKS) -> tuple[int, int, int]:
+    """(chunk, slice, vbits) of the rounds engine for ``m`` edges on
+    ``n_pad`` rows, ``budget`` device bytes for the grouping and ``blocks``
+    resident CTAs: chunks of as many edges as the CTAs hold (at most
+    ``EDGE_ROUNDS_CHUNK``, at most ``m``); slices of whole chunks, grouped
+    by one sort each, as many chunks as ``budget`` holds at
+    ``ROUNDS_GROUP_BYTES`` an edge, at least ``ROUNDS_MIN_SLICE_CHUNKS``,
+    and no more than the stream has or the int32 keys
+    ``chunk << vbits | vertex`` number."""
+    per_grid = blocks * EDGE_ROUNDS_THREADS * EDGE_ROUNDS_ITEMS // 2
+    chunk = max(1, min(EDGE_ROUNDS_CHUNK, per_grid, m))
+    vbits = max(1, (n_pad - 1).bit_length())
+    by_memory = max(ROUNDS_MIN_SLICE_CHUNKS, budget // (ROUNDS_GROUP_BYTES * chunk))
+    per_slice = max(1, min(-(-m // chunk), by_memory, 1 << (31 - vbits)))
+    return chunk, per_slice * chunk, vbits
+
+
+def group_budget(device) -> int:
+    """Device bytes the rounds engine's grouping may take on ``device``
+    without raising the process's peak: what the caching allocator's peak
+    (``max_memory_allocated``) holds above what is allocated now. On the
+    main path that is the room the blocking's argsorts left."""
+    return max(0, torch.cuda.max_memory_allocated(device) - torch.cuda.memory_allocated(device))
+
+
+_ROUNDS_BLOCKS: dict[int, int] = {}
+
+
+def rounds_blocks(device) -> int:
+    """CTAs of the rounds engine that ``device`` (a CUDA device) holds
+    resident at once, at most ``EDGE_ROUNDS_BLOCKS``: the SMs times the
+    CTAs an SM fits (the CUDA occupancy query, once a device)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _ROUNDS_BLOCKS:
+        fn = build.load_library(EDGES_LIBRARY, EDGES_SOURCE).substream_match_rounds_blocks
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = fn(ctypes.byref(out))
+        if err or out.value < 1:
+            raise RuntimeError(f"{ROUNDS_NAME}: no cooperative grid on cuda:{index} "
+                               f"(CUDA error {err}, {out.value} CTAs)")
+        _ROUNDS_BLOCKS[index] = out.value
+    return _ROUNDS_BLOCKS[index]
 
 
 def _launcher(name: str = NAME):
@@ -221,6 +297,86 @@ def substream_match_packed(
         mb[:, :width] = mb_init
     assigned = _launch_edges(NAME, edges, weights, thresholds, mb)
     return assigned, mb if pitch == width else mb[:, :width].contiguous()
+
+
+def _rounds_launchers():
+    lib = build.load_library(EDGES_LIBRARY, EDGES_SOURCE)
+    keys, run = lib.substream_match_rounds_keys, lib.substream_match_rounds
+    keys.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p]
+    run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int] + [ctypes.c_void_p] * 3
+    keys.restype = run.restype = ctypes.c_int
+    return keys, run
+
+
+def substream_match_rounds(
+    edges: torch.Tensor,  # int32 [m, 2]
+    weights: torch.Tensor,  # float32 [m]; 0 marks padding/invalid edges
+    thresholds: torch.Tensor,  # float32 [8, width], width <= ROUNDS_MAX_WIDTH; +inf pads
+    n_pad: int,
+    mb_init: torch.Tensor | None = None,  # uint8 [n_pad, width] carried-in bits
+    stats: torch.Tensor | None = None,  # int64 [2] on the card: chunks and rounds added
+):
+    """Part 1 over the edges in the order given, as
+    :func:`substream_match_packed` computes it, bit for bit, on the whole
+    card: chunks of consecutive edges, each grouped by vertex (one stable
+    ``torch.sort`` of int32 keys per slice of chunks, sized by
+    :func:`rounds_geometry` from :func:`group_budget` and
+    :func:`rounds_blocks`) and matched in bit-parallel rounds of locally
+    least edges by one cooperative launch per slice. The host waits on
+    nothing.
+
+    Returns (assigned int32 [m], mb uint8 [n_pad, width]). ``stats``, where
+    given, gets the chunks and the rounds (summed over the chunks) added on
+    the device. Raises ``ValueError`` as :func:`substream_match_packed` does,
+    and for a row wider than ``ROUNDS_MAX_WIDTH`` words. On a CPU tensor
+    it runs the packed kernel's plain version.
+    """
+    _check(edges, weights, thresholds, n_pad, mb_init)
+    if edges.device.type == "cpu":
+        return substream_match_packed_plain(edges, weights, thresholds, n_pad, mb_init)
+    if edges.device.type != "cuda":
+        raise ValueError(f"no kernel for device {edges.device}")
+    width = thresholds.shape[1]
+    if width > ROUNDS_MAX_WIDTH:
+        raise ValueError(f"row width {width} words > {ROUNDS_MAX_WIDTH}: the rounds engine "
+                         f"takes one 64-bit word a row (L <= 64)")
+    dev = edges.device
+    m = edges.shape[0]
+    mb = torch.zeros((n_pad, ROUNDS_MAX_WIDTH), dtype=torch.uint8, device=dev)
+    if mb_init is not None:
+        mb[:, :width] = mb_init
+    assigned = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m:
+        keys_fn, run_fn = _rounds_launchers()
+        scratch = torch.empty((ROUNDS_SCRATCH_WORDS,), dtype=torch.int64, device=dev)
+        if stats is None:
+            stats = torch.zeros((2,), dtype=torch.int64, device=dev)
+        chunk, slice_edges, vbits = rounds_geometry(m, n_pad, group_budget(dev),
+                                                    rounds_blocks(dev))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            for lo in range(0, m, slice_edges):
+                n = min(m, lo + slice_edges) - lo
+                part = edges[lo:lo + n]
+                keys = torch.empty((2 * n,), dtype=torch.int32, device=dev)
+                err = keys_fn(part.data_ptr(), keys.data_ptr(), n, chunk, vbits, stream)
+                if err:
+                    raise RuntimeError(f"{ROUNDS_KEYS_NAME} launch failed: CUDA error {err}")
+                build.launches[ROUNDS_KEYS_NAME] += 1
+                keys, perm = torch.sort(keys, stable=True)
+                scratch[EDGE_ROUNDS_CHUNK:].zero_()
+                err = run_fn(
+                    part.data_ptr(), weights[lo:].data_ptr(), thresholds.data_ptr(),
+                    mb.data_ptr(), assigned[lo:].data_ptr(), keys.data_ptr(), perm.data_ptr(),
+                    n, chunk, width, vbits, scratch.data_ptr(), stats.data_ptr(), stream,
+                )
+                if err:
+                    raise RuntimeError(f"{ROUNDS_NAME} launch failed: CUDA error {err}")
+                build.launches[ROUNDS_NAME] += 1
+                del keys, perm  # before the next slice's sort
+    return assigned, mb if width == ROUNDS_MAX_WIDTH else mb[:, :width].contiguous()
 
 
 def _unpacked_block(rows: int, width: int, mb_init, device) -> torch.Tensor:

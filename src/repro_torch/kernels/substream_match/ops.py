@@ -25,10 +25,13 @@ and observability layers of the JAX package: ``telemetry=``
 ``snapshots=`` (:class:`repro_torch.checkpoint.snapshots.SnapshotManager`)
 and ``guard=`` (:class:`repro_torch.core.executor.ExecutionGuard`).
 :func:`merge_device` is Part 2 on the card, a one-substream Part 1 run
-through the per-edge engine below :func:`substream_match`. The
+through the per-edge walker below :func:`substream_match`. The per-edge
+schedule has two engines on the card, chosen by :func:`edges_route`: the
+one-CTA walker of each layout, and the rounds engine for packed rows of
+one 64-bit word (L <= 64). The
 kernels are launched through the module-level seams :func:`_edges_device`,
-:func:`_waves_device` and :func:`_mega_device`, which
-:func:`repro_torch.testing.faultline.failing` patches.
+:func:`_rounds_device`, :func:`_waves_device` and :func:`_mega_device`,
+which :func:`repro_torch.testing.faultline.failing` patches.
 """
 from __future__ import annotations
 
@@ -479,6 +482,11 @@ def _edges_device(args, packed: bool):
     return launch(*args)
 
 
+def _rounds_device(args, stats=None):
+    """Launch the rounds engine on :func:`kernel_inputs`'s packed operands."""
+    return _kernel.substream_match_rounds(*args, stats=stats)
+
+
 def _waves_device(args, packed: bool):
     """Launch the segment kernel on :func:`waves_inputs`'s operands."""
     return _kernel.substream_match_waves(*args, packed=packed)
@@ -504,28 +512,56 @@ def _block_args(plan: DevicePlan) -> dict:
     return {"bit_block_bytes": int(plan.nbytes), "fits_l2": int(plan.fits_l2)}
 
 
+def edges_route(device, packed: bool, width: int) -> str:
+    """Which engine runs a per-edge call: ``"rounds_engine"``
+    (:func:`repro_torch.kernels.substream_match.kernel.substream_match_rounds`)
+    for a packed call on the card whose rows are one 64-bit word
+    (``width <= ROUNDS_MAX_WIDTH``, L <= 64); else ``"walker"``, the
+    one-CTA kernel of the layout (its plain version on the CPU)."""
+    if torch.device(device).type == "cuda" and packed and width <= _kernel.ROUNDS_MAX_WIDTH:
+        return "rounds_engine"
+    return "walker"
+
+
 def _edges_entry(stream, cfg, *, packed, telemetry, mb0=None) -> MatchingResult:
-    """The per-edge engine on a stream on its device. It has no host
-    scheduling, so its schedule and pack stages stay 0. Under an enabled
-    session the device stage's span carries ``edges``, ``bit_block_bytes``
-    and ``fits_l2``, and the ``stream.self_loops`` counter (valid edges
-    with ``src == dst``, which the kernel admits to no substream) is one
-    device reduction in the layout stage."""
+    """The per-edge engine on a stream on its device, routed by
+    :func:`edges_route`. It has no host scheduling, so its schedule and
+    pack stages stay 0. Under an enabled session the device stage's span
+    carries ``edges``, ``bit_block_bytes`` and ``fits_l2`` (and on the
+    rounds engine ``chunks`` and ``rounds``, read once after the launches),
+    the session counts the route (``kernel_edges.rounds_engine.calls`` or
+    ``kernel_edges.walker.calls``) and adds the rounds engine's
+    ``kernel_edges.chunks`` and ``kernel_edges.rounds``, and the
+    ``stream.self_loops`` counter (valid edges with ``src == dst``, which
+    the kernel admits to no substream) is one device reduction in the
+    layout stage."""
     m = stream.num_edges
     rec = _recorder(telemetry, "kernel_edges", stream)
     with rec.stage("layout"):
         args = kernel_inputs(stream, cfg, mb0, packed)
         if telemetry.enabled:
             loops = int((stream.valid & (stream.src == stream.dst)).sum())
-    span_args = {}
+    route = edges_route(stream.device, packed, args[2].shape[1])
+    span_args, stats = {}, None
     if telemetry.enabled:
         plan = device_plan(cfg.n, cfg.L, packed=packed)
         rec.put_many(plan_counters(plan))
         rec.put("stream.num_edges", m)
         rec.put("stream.self_loops", loops)
         span_args = {"edges": m, **_block_args(plan)}
-    with rec.device_stage(_library(stream.device, _kernel.EDGES_LIBRARY), **span_args):
-        assigned, mb = rec.block(_edges_device(args, packed))
+        telemetry.counters.add(f"kernel_edges.{route}.calls")
+        if route == "rounds_engine":
+            stats = torch.zeros(2, dtype=torch.int64, device=stream.device)
+    with rec.device_stage(_library(stream.device, _kernel.EDGES_LIBRARY), **span_args) as span:
+        if route == "rounds_engine":
+            assigned, mb = rec.block(_rounds_device(args, stats))
+        else:
+            assigned, mb = rec.block(_edges_device(args, packed))
+        if stats is not None:
+            chunks, rounds = stats.tolist()
+            span.note(chunks=chunks, rounds=rounds)
+            telemetry.counters.add("kernel_edges.chunks", chunks)
+            telemetry.counters.add("kernel_edges.rounds", rounds)
     rec.finish()
     return _result(assigned, mb, cfg, packed)
 

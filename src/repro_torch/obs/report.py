@@ -134,6 +134,10 @@ class _StageSpan:
         self._t0 = time.perf_counter()
         return self
 
+    def note(self, **args):
+        """Add ``args`` to the stage span's (known only inside it)."""
+        self._args = {**(self._args or {}), **args}
+
     def __exit__(self, *exc):
         t1 = time.perf_counter()
         rec = self._rec

@@ -224,6 +224,9 @@ _TARGETS = {
     "scan_oracle": "mwm_scan",
     "waves_xla": "mwm_waves",
 }
+#: Seams patched with a target besides its own: the per-edge engine's launch
+#: is the walker's or, on the card, the rounds engine's.
+_ALSO = {"edges_device": ("_rounds_device",)}
 
 
 @contextlib.contextmanager
@@ -251,10 +254,10 @@ def failing(*targets: str, exc_type=InjectedFailure):
     saved = []
     try:
         for t in targets:
-            attr = _TARGETS[t]
             module = _matching if t in ("scan_oracle", "waves_xla") else _ops
-            saved.append((module, attr, getattr(module, attr)))
-            setattr(module, attr, _raiser(t))
+            for attr in (_TARGETS[t], *_ALSO.get(t, ())):
+                saved.append((module, attr, getattr(module, attr)))
+                setattr(module, attr, _raiser(t))
         yield
     finally:
         for module, attr, fn in reversed(saved):
@@ -342,11 +345,12 @@ def slow(fn, clock: FakeClock, seconds: float):
     return wrapped
 
 
-def flake(fn, times: int, exc_type=TransientFlake):
+def flake(fn, times: int, exc_type=TransientFlake, state: dict | None = None):
     """Fail the first ``times`` calls with ``exc_type``, then delegate:
     the fail-N-times-then-succeed shape the retry budget is sized for.
-    The wrapper exposes ``calls`` for assertions."""
-    state = {"calls": 0}
+    The wrapper exposes ``calls`` for assertions; wrappers given one
+    ``state`` count their calls together."""
+    state = {"calls": 0} if state is None else state
 
     def wrapped(*args, **kwargs):
         state["calls"] += 1
@@ -377,10 +381,11 @@ def flaky(*targets: str, times: int = 1, exc_type=TransientFlake):
     saved = []
     try:
         for t in targets:
-            attr = _TARGETS[t]
             module = _matching if t in ("scan_oracle", "waves_xla") else _ops
-            saved.append((module, attr, getattr(module, attr)))
-            setattr(module, attr, flake(getattr(module, attr), times, exc_type))
+            state = {"calls": 0}
+            for attr in (_TARGETS[t], *_ALSO.get(t, ())):
+                saved.append((module, attr, getattr(module, attr)))
+                setattr(module, attr, flake(getattr(module, attr), times, exc_type, state))
         yield
     finally:
         for module, attr, fn in reversed(saved):

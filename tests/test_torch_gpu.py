@@ -200,6 +200,205 @@ def test_packed_kernel_takes_a_row_of_two_words(cuda):
     _held_to_plain(True, (edges, w, thr, n_pad, mb0))
 
 
+def _rounds_held(args, model=True):
+    """The rounds engine on ``args`` (card tensors) against the packed walker
+    (row 1) and, where ``model``, the numpy model on the CPU: ``assigned``
+    and the block bit for bit; the engine's stats are the model's."""
+    from repro_torch.testing.rounds_model import rounds_model
+
+    before = build.launches[kernel.ROUNDS_NAME], build.launches[kernel.ROUNDS_KEYS_NAME]
+    stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    got_a, got_mb = kernel.substream_match_rounds(*args, stats=stats)
+    slices = build.launches[kernel.ROUNDS_NAME] - before[0]
+    assert slices == build.launches[kernel.ROUNDS_KEYS_NAME] - before[1]
+    assert slices > 0 or args[0].shape[0] == 0
+    want_a, want_mb = kernel.substream_match_packed(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a)
+    assert torch.equal(got_mb, want_mb)
+    if model:
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        m, n_pad = args[0].shape[0], args[3]
+        geometry = kernel.rounds_geometry(m, n_pad, 0, kernel.rounds_blocks(args[0].device))
+        m_a, m_mb, chunks, rounds = rounds_model(*cpu, geometry=geometry)
+        np.testing.assert_array_equal(got_a.cpu().numpy(), m_a)
+        np.testing.assert_array_equal(got_mb.cpu().numpy(), m_mb)
+        assert stats.tolist() == [chunks, rounds]
+    return stats.tolist()
+
+
+ROUNDS_CASES = sorted(k for k in CASES if k != "rmat10_L300") + [
+    f"{name}-L{L}" for name in sorted(WINDOW) for L in (1, 13, 64)]
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("case", ROUNDS_CASES)
+def test_rounds_engine_matches_walker_and_model(cuda, case, carried):
+    """The zoo, RMAT, hubs, repeated pairs, self-loops, m in {0, 1, 31, 32,
+    33}, L in {1, 13, 64}, with and without carried bits."""
+    if "-L" in case:
+        name, L = case.split("-L")
+        c = WINDOW[name](int(L))
+    else:
+        c = CASES[case]()
+    stream, cfg, mb0 = _carried(c, cuda, True) if carried else (*_on(c, cuda), None)
+    _rounds_held(kernel_inputs(stream, cfg, mb0))
+
+
+def test_rounds_engine_takes_unsorted_thresholds_and_a_short_row(cuda):
+    from repro_torch.testing.cases import permuted_lanes
+
+    c = rmat_case(12, edge_factor=8, L=64)
+    edges, w, thr, n_pad, _ = kernel_inputs(*_on(c, cuda))
+    _rounds_held((edges, w, permuted_lanes(thr, 64), n_pad, None))
+    c = WINDOW["hub"](13)
+    edges, w, thr, n_pad, _ = kernel_inputs(*_on(c, cuda))
+    thr = thr[:, :2].contiguous()
+    mb0 = torch.randint(0, 256, (n_pad, 2), dtype=torch.uint8, device=cuda)
+    _rounds_held((edges, w, thr, n_pad, mb0))
+
+
+def _blocked_args(src, dst, w, n, mb0=None):
+    """The packed per-edge operands of a stream on the card in the main
+    path's blocked order (K = 32), L = 64."""
+    from repro_torch.core.blocked import lexicographic_order, permute_stream
+
+    stream = EdgeStream(src, dst, w, torch.ones(src.shape, dtype=torch.bool, device=src.device))
+    blocked = permute_stream(stream, lexicographic_order(stream, 32))
+    return kernel_inputs(blocked, SubstreamConfig(n=n, L=64, eps=0.1), mb0)
+
+
+@pytest.mark.parametrize("scale, edge_factor, model", [(16, 16, True), (20, 8, False)])
+def test_rounds_engine_on_blocked_rmat(cuda, scale, edge_factor, model):
+    """RMAT at 2^16 (1 M edges, eight chunks; also against the model) and
+    2^20 (8 M edges) in the blocked order, whole and as two halves that
+    carry their bits."""
+    c = rmat_case(scale, edge_factor=edge_factor, L=64, seed=3)
+    src, dst, w = (torch.from_numpy(x).to(cuda) for x in (c.src, c.dst, c.w))
+    edges, wb, thr, n_pad, _ = _blocked_args(src, dst, w, c.n)
+    chunks, rounds = _rounds_held((edges, wb, thr, n_pad, None), model=model)
+    assert chunks == -(-edges.shape[0] // kernel.EDGE_ROUNDS_CHUNK) and rounds >= chunks
+    h = edges.shape[0] // 2
+    _, mb_head = kernel.substream_match_rounds(edges[:h], wb[:h], thr, n_pad)
+    a_tail, mb_tail = kernel.substream_match_rounds(edges[h:], wb[h:], thr, n_pad, mb_head)
+    want_a, want_mb = kernel.substream_match_packed(edges, wb, thr, n_pad)
+    assert torch.equal(a_tail, want_a[h:]) and torch.equal(mb_tail, want_mb)
+
+
+def test_rounds_engine_on_a_graph500_stream_out_of_the_l2(cuda):
+    """A Graph500-form stream (scrambled labels, self-loops and repeats
+    kept) on 2^23 vertices, whose 64 MiB block leaves the L2: 2^24 edges in
+    the blocked order, against the walker, whole and from carried bits."""
+    import json
+    import pathlib
+
+    from perfbench.gen import graph500
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    config = json.loads((root / "perfbench" / "configs" / "graph500-L64.json").read_text())
+    config = {**config, "edge_factor": 2}
+    src, dst, w = graph500.generate(config, 23, torch.Generator(device=cuda).manual_seed(5))
+    assert int((src == dst).sum()) > 0
+    n = 1 << 23
+    assert not device_plan(n, 64).fits_l2
+    args = _blocked_args(src, dst, w, n)
+    _rounds_held(args, model=False)
+    edges, wb, thr, n_pad, _ = args
+    h = edges.shape[0] // 3
+    _, mb_head = kernel.substream_match_packed(edges[:h], wb[:h], thr, n_pad)
+    _rounds_held((edges[h:], wb[h:], thr, n_pad, mb_head), model=False)
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 40])
+@pytest.mark.parametrize("blocks", [None, 114, 7])
+def test_rounds_engine_slices_and_grids(cuda, monkeypatch, budget, blocks):
+    """The bits do not depend on how the engine cuts the stream: slices of
+    the floor's two chunks or of the whole stream (the grouping's budget),
+    and chunks for the card's resident grid, one of 114 CTAs (an H100
+    PCIe's SMs) or of 7; the launches count one keys and one rounds launch
+    a slice."""
+    c = rmat_case(16, edge_factor=16, L=64, seed=8)
+    src, dst, w = (torch.from_numpy(x).to(cuda) for x in (c.src, c.dst, c.w))
+    args = _blocked_args(src, dst, w, c.n)
+    m = args[0].shape[0]
+    monkeypatch.setattr(kernel, "group_budget", lambda device: budget)
+    if blocks is not None:
+        monkeypatch.setattr(kernel, "rounds_blocks", lambda device: blocks)
+    grid = blocks or kernel.rounds_blocks(cuda)
+    chunk, slice_edges, _ = kernel.rounds_geometry(m, args[3], budget, grid)
+    assert chunk == min(kernel.EDGE_ROUNDS_CHUNK, grid * 1024)
+    before = build.launches[kernel.ROUNDS_NAME]
+    chunks, _ = _rounds_held(args, model=False)
+    assert chunks == -(-m // chunk)
+    assert build.launches[kernel.ROUNDS_NAME] - before == -(-m // slice_edges)
+
+
+@pytest.mark.parametrize("case", ["short_L64", "L128", "unpacked"])
+def test_route_counters_on_card(cuda, case):
+    """``substream_match`` on the card sends every packed call with rows of
+    one 64-bit word to the rounds engine, however short its stream, and
+    rows of two words and the unpacked layout to the walker: the route
+    counters, the launch counts and the ``execute`` span's args say which;
+    the bits are the CPU's."""
+    from repro_torch import obs
+
+    L, packed = {"short_L64": (64, True), "L128": (128, True), "unpacked": (64, False)}[case]
+    c = rmat_case(6, edge_factor=2, L=L, eps=0.1 if L == 64 else 0.05, seed=12)
+    stream, cfg = _on(c, cuda)
+    assert stream.num_edges < 200
+    tel = obs.Telemetry()
+    before = dict(build.launches)
+    got = substream_match(stream, cfg, packed=packed, telemetry=tel)
+    want = substream_match(stream.to("cpu"), cfg, packed=packed, device="cpu")
+    assert torch.equal(got.assigned.cpu(), want.assigned)
+    assert torch.equal(got.mb.cpu(), want.mb)
+    launched = {k: v - before.get(k, 0) for k, v in build.launches.items()
+                if v != before.get(k, 0)}
+    (execute,) = [e for e in tel.tracer.events if e["name"] == "kernel_edges.execute"]
+    if case == "short_L64":
+        route = "rounds_engine"
+        assert launched == {kernel.ROUNDS_NAME: 1, kernel.ROUNDS_KEYS_NAME: 1}
+        assert execute["args"]["chunks"] == tel.counters.get("kernel_edges.chunks") == 1
+        assert execute["args"]["rounds"] == tel.counters.get("kernel_edges.rounds") >= 1
+    else:
+        route = "walker"
+        assert launched == {kernel.NAME if packed else kernel.UNPACKED_NAME: 1}
+        assert "rounds" not in execute["args"]
+    other = {"walker": "rounds_engine", "rounds_engine": "walker"}[route]
+    assert tel.counters.get(f"kernel_edges.{route}.calls") == 1
+    assert tel.counters.get(f"kernel_edges.{other}.calls") == 0
+
+
+def test_rounds_engine_peak_under_the_blockings(cuda, monkeypatch):
+    """On a kron48.s16-jobs-sized stream (2^16 vertices, ~2.4 M edges) the
+    main path's peak while Part 1 runs on the rounds engine stays under the
+    peak the blocking set before it."""
+    from repro_torch.kernels.substream_match import ops
+
+    c = rmat_case(16, edge_factor=48, L=64, seed=11)
+    host, cfg = _on(c, "cpu")
+    peaks = {}
+    engine = ops._rounds_device
+
+    def measured(args, stats=None):  # the peak is not reset: the engine reads its room from it
+        torch.cuda.synchronize()
+        peaks["before"] = torch.cuda.max_memory_allocated()
+        out = engine(args, stats)
+        torch.cuda.synchronize()
+        peaks["part1"] = torch.cuda.max_memory_allocated()
+        return out
+
+    monkeypatch.setattr(ops, "_rounds_device", measured)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    idx, _ = mwm_pipeline(host, cfg, part1="kernel")
+    monkeypatch.setattr(ops, "edges_route", lambda *a: "walker")
+    want, _ = mwm_pipeline(host, cfg, part1="kernel")
+    np.testing.assert_array_equal(idx, want)
+    assert host.num_edges > 2_000_000
+    assert peaks["part1"] <= peaks["before"], peaks
+
+
 @pytest.mark.parametrize("carried", [False, True])
 @pytest.mark.parametrize("schedule, seg_block", [("mega", 1), ("mega", 2), ("waves", None)])
 @pytest.mark.parametrize("case", sorted(UNPACKED_CASES))
@@ -538,7 +737,7 @@ def test_clean_ladder_on_card(cuda, schedule, packed):
     c = CASES["rmat10_L64"]()
     _, _, want = _part1_on_cpu(c)
     tel = obs.Telemetry()
-    name = (kernel.NAME if packed else kernel.UNPACKED_NAME) if schedule == "edges" \
+    name = (kernel.ROUNDS_NAME if packed else kernel.UNPACKED_NAME) if schedule == "edges" \
         else _wave_kernel_name(schedule, packed)
     before = build.launches[name]
     got = substream_match(*_on(c, cuda), schedule=schedule, packed=packed,
@@ -629,7 +828,9 @@ def test_pipeline_spans_on_card(cuda):
         assert outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
     block = {"bit_block_bytes": device_plan(cfg.n, cfg.L).nbytes, "fits_l2": 1}
     assert spans[names.index("kernel_edges.execute")]["args"] == {
-        "edges": pinned.num_edges, **block}
+        "edges": pinned.num_edges, **block, "chunks": tel.counters.get("kernel_edges.chunks"),
+        "rounds": tel.counters.get("kernel_edges.rounds")}
+    assert tel.counters.get("kernel_edges.rounds_engine.calls") == 1
     assert spans[names.index("merge.kernel")]["args"] == {
         "recorded": tel.counters.get("merge.recorded_edges"),
         "bit_block_bytes": device_plan(cfg.n, 1).nbytes, "fits_l2": 1}
@@ -828,7 +1029,7 @@ def test_segment_ops_on_card_match_cpu(cuda):
 
 
 def test_coarsen_gseq_and_matchings_on_card_match_cpu(cuda):
-    """``coarsen_by_matching`` launches the packed per-edge kernel once and
+    """``coarsen_by_matching`` runs Part 1 once, on the rounds engine, and
     equals the CPU run; ``gseq`` and ``substream_matchings`` on the card
     equal the CPU."""
     from repro_torch import graph
@@ -836,9 +1037,10 @@ def test_coarsen_gseq_and_matchings_on_card_match_cpu(cuda):
 
     src, dst = graph.kronecker_graph(10, edge_factor=4, seed=4)
     w = graph.uniform_weights(src.shape[0], 32, 0.1, seed=4)
-    before = build.launches[kernel.NAME]
+    before = dict(build.launches)
     got = graph.coarsen_by_matching(src, dst, w, 1 << 10)
-    assert build.launches[kernel.NAME] == before + 1
+    assert {k: v - before.get(k, 0) for k, v in build.launches.items()
+            if v != before.get(k, 0)} == {kernel.ROUNDS_NAME: 1, kernel.ROUNDS_KEYS_NAME: 1}
     for a, b in zip(got, graph.coarsen_by_matching(src, dst, w, 1 << 10, device="cpu")):
         np.testing.assert_array_equal(a, b)
     c = rmat_case(9, edge_factor=4, L=16, pad=3)
