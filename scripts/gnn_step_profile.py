@@ -4,8 +4,8 @@
     python3 scripts/gnn_step_profile.py
 
 GIN at gin-tu's width (5 layers, d = 64) on a ``make_gnn_batch(seed=0)``
-batch of 2,449,152 nodes and 61,859,328 edges (100 features, 47 classes),
-as ``chip_smoke.py``'s ``gnn_full`` phase runs it. Prints JSON lines:
+batch of 2,449,152 nodes and 61,859,328 edges (100 features, 47 classes).
+Prints JSON lines:
 
 * ``steps``: CUDA-event ms of each of ``--steps`` train steps and the peak
   device memory;
@@ -30,7 +30,7 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.launch.roofline import HBM_BW  # noqa: E402
 
 
 def cuda_ms(fn, reps=1):
@@ -103,7 +103,7 @@ def main(argv=None) -> int:
     for name, (fn, nbytes) in ops.items():
         fn()
         t, _ = cuda_ms(fn, reps=5)
-        out[name] = {"ms": t, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        out[name] = {"ms": t, "bytes": nbytes, "bound_ms": nbytes / HBM_BW * 1e3,
                      "achieved_GB_per_s": nbytes / (t * 1e-3) / 1e9}
     emit("ops", shape=[E, d], per_layer_forward_and_backward=2, ops=out)
     del h, msg, drop

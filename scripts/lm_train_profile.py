@@ -7,9 +7,9 @@
 LM: minicpm-2b at its published config (40 layers, d 2,304, bf16 weights
 drawn on the card, float32 moments: ``default_opt_cfg``) on ``train_4k``'s
 4,096 tokens a sequence, ``--batch`` sequences from ``TokenPipeline(seed=0)``
-through ``make_lm_train_step``, as ``chip_smoke.py``'s ``lm_train`` phase
-runs it. BERT4Rec: its published config on ``--recsys-batch`` users of
-``RecsysPipeline(seed=0)`` through ``make_recsys_step``'s train kind.
+through ``make_lm_train_step``. BERT4Rec: its published config on
+``--recsys-batch`` users of ``RecsysPipeline(seed=0)`` through
+``make_recsys_step``'s train kind.
 Prints JSON lines:
 
 * ``device``: the card's name and power limit (``nvidia-smi``);

@@ -101,12 +101,7 @@ def mwm_pipeline(
         if tel.enabled:
             span.note(call=tel.pipeline_calls, m=stream.num_edges, part1=part1)
             tel.pipeline_calls += 1
-        work = stream
-        if on_card:
-            # one copy a job; its own device (cuda:0, not cuda) keeps every
-            # later stream.to a no-op
-            work = stream.to(dev, telemetry=tel)
-            dev = work.device
+        work = stream.to(dev, telemetry=tel) if on_card else stream
         if part1 == "scan":
             res = mwm_scan(work, cfg, device=dev)
         elif part1 == "waves":

@@ -25,15 +25,21 @@ MB_LAYOUTS = ("packed", "unpacked")
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``None`` means the CUDA card.
 
-    Raises ``RuntimeError`` when a CUDA device is asked for and there is
-    none; nothing falls back to the CPU unless the caller asks for it.
+    A CUDA device comes back with its index (``cuda:<current>`` for
+    ``None`` or ``"cuda"``), the name its tensors carry, so a stream
+    already there compares equal to it. Raises ``RuntimeError`` when a CUDA
+    device is asked for and there is none; nothing falls back to the CPU
+    unless the caller asks for it.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -86,12 +92,13 @@ class EdgeStream:
         return self.src.device
 
     def to(self, device, telemetry=obs.DISABLED) -> "EdgeStream":
-        """The same stream on ``device`` (itself when already there).
+        """The same stream on ``device``, named as :func:`resolve_device`
+        names it (itself when already there).
 
         ``telemetry`` records a ``stream.to`` span where the stream is not
         on ``device`` already, with its ``bytes`` and the ``source`` and
         ``target`` devices as args."""
-        device = torch.device(device)
+        device = resolve_device(device)
         if self.src.device == device:
             return self
         cuda = device if device.type == "cuda" else self.src.device

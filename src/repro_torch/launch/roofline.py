@@ -9,8 +9,9 @@ over the collectives a traced step issued (there is no HLO to parse).
 """
 from __future__ import annotations
 
-#: bytes/s of HBM3 on one H100 SXM (NVIDIA H100 data sheet, 3.35 TB/s);
-#: the memory term ``chip_smoke.py`` computes its bounds with
+#: bytes/s of HBM3 on one H100 SXM (NVIDIA H100 data sheet, 3.35 TB/s); the
+#: one copy in the port, read also by ``chip_smoke.py``'s kernel bounds and
+#: ``scripts/gnn_step_profile.py``'s ops
 HBM_BW = 3.35e12
 
 #: bf16 dense FLOP/s of one H100 SXM (NVIDIA H100 data sheet, no sparsity)

@@ -1,5 +1,5 @@
 """Holding a GNN train step on the card to the same step on the CPU, for
-the card-only tests and the card smoke run.
+the card-only tests.
 
 :func:`cpu_loss_and_grads` runs the loss and its gradients on a CPU copy
 of a model (the same weights) for a batch; after the card's step,

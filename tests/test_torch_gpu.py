@@ -1,25 +1,43 @@
-"""Card-only tests of the port: the CUDA kernels (packed and unpacked
-layouts) against their plain versions, with and without carried bits, the
-per-edge kernels on streams aimed at their batch window too, the four
-wave kernels on streams aimed at their slot ring (against the packed
-per-edge kernel as well), and the main path and the epoch executor on the
-card against the same calls on the CPU; then the robustness and
-observability layers on the card: the per-edge kernels at L = 1 (the
-device merge's shape), ``merge_device``, every rung of the fallback
-ladder, the telemetry records of the three entries, ``validate``, and
-snapshots with the execution guard around the epoch executor; one train
-step of each GNN on the card against the same step on the CPU; and the
-serving paths: the five LMs (prefill, decode) and BERT4Rec (serve,
-retrieval) at their smoke configs on the card against the CPU, a card
-build against a CPU build from one seed, and draws from a CUDA generator;
-the training paths: one train step of each LM (float32, and minicpm-2b in
-bfloat16 through the bf16 GEMM's backward) and of BERT4Rec on the card
-against the CPU, the top-k and MoE routing ties on the card, and the
-sliced AdamW step bit-equal to one pass over each leaf. They skip without a CUDA device; on a machine with an NVIDIA card run
+"""Card-only tests of the port, the one home of its checks on the card
+(``chip_smoke.py`` builds the libraries and times the kernels; what the
+card must do is decided here):
+
+* the CUDA kernels (packed and unpacked layouts) against their plain
+  versions, with and without carried bits, the per-edge kernels on streams
+  aimed at their batch window, the four wave kernels on streams aimed at
+  their slot ring (against the packed per-edge kernel as well), the rounds
+  engine against the walker and its numpy model, its slices and grids, and
+  40 repeated calls on the blocked streams of two benchmark cells;
+* the main path and the epoch executor (with a resume) on the card against
+  the same calls on the CPU, the main path's launches, spans and counters,
+  and one name for a card (a stream on it is not copied again);
+* the robustness and observability layers: the per-edge kernels at L = 1
+  (the device merge's shape), ``merge_device``, every rung of the fallback
+  ladder, the telemetry records of the three entries, ``validate``, and
+  snapshots with the execution guard around the epoch executor;
+* the rounds (also at the paper's size), G-SEQ, the graph substrate, the
+  sampled GIN trainer's coarsening and step, and the two matching examples;
+* one train step of each GNN, the serving paths (the five LMs' prefill and
+  decode, decode against ``backbone``, BERT4Rec's serving and retrieval) and
+  the training paths (each LM, also minicpm-2b in bfloat16, and BERT4Rec)
+  against the CPU at their smoke configs, launching no kernel of the port;
+  a card build against a CPU build from one seed, draws from a CUDA
+  generator, the top-k and MoE routing ties, the sliced AdamW step;
+* an LM train step on a 1x1 NCCL mesh against the same steps without one,
+  and the dry-run's model of that step held to it.
+
+They skip without a CUDA device; on a machine with an NVIDIA card run
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+A test whose failure could be a hang runs its work in a child process with
+a time limit (``_in_child``).
 """
 import functools
+import json
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -51,6 +69,8 @@ from repro_torch.testing.cases import (
 
 pytestmark = pytest.mark.gpu
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
 CASES = {**ZOO,
          "rmat10_L64": lambda: rmat_case(10, edge_factor=4, L=64, pad=3),
          "rmat10_L300": lambda: rmat_case(10, edge_factor=4, L=300, eps=0.01)}
@@ -66,6 +86,27 @@ def cuda():
 def _on(case, device):
     stream = EdgeStream.from_numpy(case.src, case.dst, case.w, n_pad=case.m_pad, device=device)
     return stream, SubstreamConfig(n=case.n, L=case.L, eps=case.eps)
+
+
+def _launched(before):
+    """The kernel launches counted since ``before`` (a copy of
+    ``build.launches``), by kernel name."""
+    return {k: v - before.get(k, 0) for k, v in build.launches.items() if v != before.get(k, 0)}
+
+
+def _in_child(name, timeout, *args):
+    """``name(*args)``, a function of this module, in a process of its own
+    that is killed after ``timeout`` seconds, so a launch that hangs fails
+    its test instead of stalling the run; returns what it returned (JSON)."""
+    code = ("import json, sys\n"
+            f"sys.path[:0] = {[str(ROOT / 'tests'), str(ROOT / 'src'), str(ROOT)]!r}\n"
+            "import test_torch_gpu as t\n"
+            f"print(json.dumps(t.{name}(*json.loads(sys.argv[1]))))\n")
+    torch.cuda.empty_cache()  # the child's room on the card
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(args)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.splitlines()[-1])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -258,6 +299,11 @@ def test_rounds_engine_takes_unsorted_thresholds_and_a_short_row(cuda):
     _rounds_held((edges, w, thr, n_pad, mb0))
 
 
+def _bench_config(name):
+    """A configuration file of the benchmark (``perfbench/configs``)."""
+    return json.loads((ROOT / "perfbench" / "configs" / f"{name}.json").read_text())
+
+
 def _blocked_args(src, dst, w, n, mb0=None):
     """The packed per-edge operands of a stream on the card in the main
     path's blocked order (K = 32), L = 64."""
@@ -289,14 +335,9 @@ def test_rounds_engine_on_a_graph500_stream_out_of_the_l2(cuda):
     """A Graph500-form stream (scrambled labels, self-loops and repeats
     kept) on 2^23 vertices, whose 64 MiB block leaves the L2: 2^24 edges in
     the blocked order, against the walker, whole and from carried bits."""
-    import json
-    import pathlib
-
     from perfbench.gen import graph500
 
-    root = pathlib.Path(__file__).resolve().parents[1]
-    config = json.loads((root / "perfbench" / "configs" / "graph500-L64.json").read_text())
-    config = {**config, "edge_factor": 2}
+    config = {**_bench_config("graph500-L64"), "edge_factor": 2}
     src, dst, w = graph500.generate(config, 23, torch.Generator(device=cuda).manual_seed(5))
     assert int((src == dst).sum()) > 0
     n = 1 << 23
@@ -333,6 +374,52 @@ def test_rounds_engine_slices_and_grids(cuda, monkeypatch, budget, blocks):
     assert build.launches[kernel.ROUNDS_NAME] - before == -(-m // slice_edges)
 
 
+def _blocked_bench_stream(workload, seed):
+    """A job's stream of a benchmark cell, drawn on the card from ``seed``
+    as the benchmark draws it (``"s16"``: kron48-L64 at 2^16 vertices;
+    ``"g500"``: graph500-L64 at 2^23 vertices, 2^27 edges), as the packed
+    per-edge operands of its blocked order."""
+    from perfbench.gen import graph500, rmat
+
+    name, scale, gen = {"s16": ("kron48-L64", 16, rmat),
+                        "g500": ("graph500-L64", 23, graph500)}[workload]
+    src, dst, w = gen.generate(_bench_config(name), scale,
+                               torch.Generator(device="cuda").manual_seed(seed))
+    return _blocked_args(src, dst, w, 1 << scale)
+
+
+def _rounds_stress(workload, seed, calls):
+    """``calls`` rounds-engine calls on one blocked benchmark stream in each
+    slicing (the allocator's room, and a budget of 0: two chunks a slice):
+    the slices of a call and how many calls differ from the walker's bits."""
+    args = _blocked_bench_stream(workload, seed)
+    want_a, want_mb = kernel.substream_match_packed(*args)
+    out, room = {"m": int(args[0].shape[0])}, kernel.group_budget
+    for label, budget in (("allocator", room), ("two_chunks", lambda device: 0)):
+        kernel.group_budget = budget
+        unequal = 0
+        for _ in range(calls):
+            before = build.launches[kernel.ROUNDS_NAME]
+            a, mb = kernel.substream_match_rounds(*args)
+            unequal += not (torch.equal(a, want_a) and torch.equal(mb, want_mb))
+        out[label] = {"slices": build.launches[kernel.ROUNDS_NAME] - before, "unequal": unequal}
+    kernel.group_budget = room
+    return out
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("workload", ["s16", "g500"])
+def test_rounds_engine_repeated_calls_on_card(cuda, workload, seed):
+    """The rounds engine's loop exits decide by flags stamped with each
+    round's epoch; a race there once put the grid barriers out of step, and
+    a call hung. 40 calls in each slicing on the blocked stream of a
+    benchmark cell: every call's bits are the walker's. The calls run in a
+    process of their own, killed after 300 s, so a hang fails the test."""
+    out = _in_child("_rounds_stress", 300, workload, seed, 40)
+    assert out["allocator"]["slices"] >= 1 and out["two_chunks"]["slices"] > 1, out
+    assert out["allocator"]["unequal"] == out["two_chunks"]["unequal"] == 0, out
+
+
 @pytest.mark.parametrize("case", ["short_L64", "L128", "unpacked"])
 def test_route_counters_on_card(cuda, case):
     """``substream_match`` on the card sends every packed call with rows of
@@ -346,14 +433,14 @@ def test_route_counters_on_card(cuda, case):
     c = rmat_case(6, edge_factor=2, L=L, eps=0.1 if L == 64 else 0.05, seed=12)
     stream, cfg = _on(c, cuda)
     assert stream.num_edges < 200
+    build.load_library(kernel.EDGES_LIBRARY, kernel.EDGES_SOURCE)  # else the stage is compile
     tel = obs.Telemetry()
     before = dict(build.launches)
     got = substream_match(stream, cfg, packed=packed, telemetry=tel)
     want = substream_match(stream.to("cpu"), cfg, packed=packed, device="cpu")
     assert torch.equal(got.assigned.cpu(), want.assigned)
     assert torch.equal(got.mb.cpu(), want.mb)
-    launched = {k: v - before.get(k, 0) for k, v in build.launches.items()
-                if v != before.get(k, 0)}
+    launched = _launched(before)
     (execute,) = [e for e in tel.tracer.events if e["name"] == "kernel_edges.execute"]
     if case == "short_L64":
         route = "rounds_engine"
@@ -585,12 +672,33 @@ def test_wave_launch_refuses_a_misaligned_block(cuda, name):
 @pytest.mark.parametrize("engine", ["edges", "waves", "mega"])
 @pytest.mark.parametrize("packed", [True, False])
 def test_epochs_on_card_match_cpu(cuda, engine, packed):
+    """Three epochs on the card equal the CPU's, each epoch one call of the
+    engine's kernel (packed ``edges``: the rounds engine, one keys and one
+    rounds launch a slice); resumed from the state after epoch 0, the card
+    runs epochs 1 and 2 alone and ends with the same bits."""
     c = CASES["rmat10_L64"]()
-    got = match_epochs(*_on(c, cuda), epochs=3, engine=engine, packed=packed)
+    stream, cfg = _on(c, cuda)
+    states = {}
+    before = dict(build.launches)
+    got = match_epochs(stream, cfg, epochs=3, engine=engine, packed=packed,
+                       epoch_hook=states.__setitem__)
+    launched = _launched(before)
     want = match_epochs(*_on(c, "cpu"), epochs=3, engine="scan", packed=packed, device="cpu")
     assert got.is_packed == packed
     assert torch.equal(got.assigned.cpu(), want.assigned)
     assert torch.equal(got.mb.cpu(), want.mb)
+    if engine == "edges" and packed:
+        slices = launched.get(kernel.ROUNDS_NAME, 0)
+        assert slices >= 3 and launched == {kernel.ROUNDS_NAME: slices,
+                                            kernel.ROUNDS_KEYS_NAME: slices}
+    else:
+        name = kernel.UNPACKED_NAME if engine == "edges" else _wave_kernel_name(engine, packed)
+        assert launched == {name: 3}
+    ran = []
+    again = match_epochs(stream, cfg, epochs=3, engine=engine, packed=packed, state=states[0],
+                         epoch_hook=lambda k, st: ran.append(k))
+    assert ran == [1, 2]
+    assert torch.equal(again.assigned, got.assigned) and torch.equal(again.mb, got.mb)
 
 
 @pytest.mark.parametrize("kw", [{}, {"schedule": "waves"}, {"schedule": "mega"},
@@ -598,11 +706,16 @@ def test_epochs_on_card_match_cpu(cuda, engine, packed):
                                 {"schedule": "mega", "packed": False}])
 @pytest.mark.parametrize("case", ["bipartite", "unaligned_n", "rmat10_L64"])
 def test_pipeline_on_card_matches_cpu(cuda, case, kw):
+    """The blocked order through each Part-1 kernel gives the CPU's edges
+    pipeline's matching; a wave schedule launches its wave kernel."""
     c = CASES[case]()
+    before = dict(build.launches)
     idx, weight = mwm_pipeline(*_on(c, cuda), part1="kernel", **kw)
     want_idx, want_weight = mwm_pipeline(*_on(c, "cpu"), part1="kernel", device="cpu")
     np.testing.assert_array_equal(idx, want_idx)
     assert weight == want_weight
+    if "schedule" in kw:
+        assert _launched(before).get(_wave_kernel_name(kw["schedule"], kw.get("packed", True)), 0) >= 1
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
@@ -730,6 +843,28 @@ def test_ladder_rungs_on_card(cuda, fault, packed):
 
 
 @pytest.mark.parametrize("packed", [True, False])
+def test_ladder_steps_down_once_on_card(cuda, packed):
+    """The mega kernel's plan refused once: the next rung, mega at
+    seg_block 1, delivers the CPU's bits with the same kernel, after one
+    fallback event."""
+    from repro_torch import obs
+    from repro_torch.kernels.substream_match.ops import PlanRefusedError
+    from repro_torch.testing import faultline
+
+    c = CASES["rmat10_L64"]()
+    _, _, want = _part1_on_cpu(c)
+    stream, cfg = _on(c, cuda)
+    tel = obs.Telemetry()
+    before = dict(build.launches)
+    with faultline.flaky("mega_device", times=1, exc_type=PlanRefusedError):
+        got = substream_match(stream, cfg, schedule="mega", packed=packed,
+                              on_plan_failure="fallback", telemetry=tel)
+    assert torch.equal(got.assigned.cpu(), want.assigned) and torch.equal(got.mb.cpu(), want.mb)
+    assert tel.counters.get("fallback.count") == 1
+    assert _launched(before) == {_wave_kernel_name("mega", packed): 1}
+
+
+@pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("schedule", ["edges", "waves", "mega"])
 def test_clean_ladder_on_card(cuda, schedule, packed):
     from repro_torch import obs
@@ -793,11 +928,15 @@ def test_telemetry_records_on_card(cuda, schedule, packed):
 def test_pipeline_spans_on_card(cuda):
     """The main path's spans on the card from a stream in pinned host
     memory: the same matching with telemetry on and off, the stream copied
-    to the card once (one ``stream.to``, from ``cpu``), Part 1's device
-    stage (with the edges and the bit block), Part 2 on the card
-    (``merge.device`` holding ``merge.order`` and ``merge.greedy`` with its
-    ``merge.kernel``, then ``merge.d2h`` of the matched int64 indices; no
-    ``merge.host``), and the same tree in the profiler's trace."""
+    to the card once (one ``stream.to``, from ``cpu`` to the card by its
+    index), Part 1's device stage (with the edges and the bit block), Part 2
+    on the card (``merge.device`` holding ``merge.order`` and
+    ``merge.greedy`` with its ``merge.kernel``, then ``merge.d2h`` of the
+    matched int64 indices; no ``merge.host``), and the same tree in the
+    profiler's trace. The main path's launches: Part 1 on the rounds engine
+    (one keys and one rounds launch a slice, its route counted once, the
+    walker's never) and the merge's one walker launch (row 1 at L = 1),
+    nothing else; one ``kernel_edges`` record whose stages hold together."""
     import json
     import tempfile
 
@@ -809,12 +948,17 @@ def test_pipeline_spans_on_card(cuda):
                                                      host.valid)))
     want = mwm_pipeline(pinned, cfg, part1="kernel")
     tel = obs.Telemetry()
+    before = dict(build.launches)
     got = mwm_pipeline(pinned, cfg, part1="kernel", telemetry=tel)
+    launched = _launched(before)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1] == want[1]
+    slices = launched.get(kernel.ROUNDS_NAME, 0)
+    assert slices >= 1 and launched == {kernel.ROUNDS_NAME: slices,
+                                        kernel.ROUNDS_KEYS_NAME: slices, kernel.NAME: 1}
     spans = [e for e in tel.tracer.events if e["ph"] == "X"]
     assert [e["args"] for e in spans if e["name"] == "stream.to"] == [
-        {"bytes": pinned.nbytes, "source": "cpu", "target": "cuda"},
+        {"bytes": pinned.nbytes, "source": "cpu", "target": f"cuda:{torch.cuda.current_device()}"},
     ]
     names = [e["name"] for e in spans]
     assert names[-1] == "pipeline" and "kernel_edges.execute" in names
@@ -831,6 +975,7 @@ def test_pipeline_spans_on_card(cuda):
         "edges": pinned.num_edges, **block, "chunks": tel.counters.get("kernel_edges.chunks"),
         "rounds": tel.counters.get("kernel_edges.rounds")}
     assert tel.counters.get("kernel_edges.rounds_engine.calls") == 1
+    assert tel.counters.get("kernel_edges.walker.calls") == 0
     assert spans[names.index("merge.kernel")]["args"] == {
         "recorded": tel.counters.get("merge.recorded_edges"),
         "bit_block_bytes": device_plan(cfg.n, 1).nbytes, "fits_l2": 1}
@@ -839,7 +984,8 @@ def test_pipeline_spans_on_card(cuda):
     assert tel.counters.get("merge.host.calls") == 0
     assert tel.counters.get("merge.matched_edges") == len(got[0])
     rec, = tel.match_calls
-    assert rec.engine == "kernel_edges"
+    assert (rec.engine, rec.backend) == ("kernel_edges", "cuda")
+    assert obs.consistency_problems(rec.stage_seconds, rec.wall_seconds) == []
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         mwm_pipeline(pinned, cfg, part1="kernel")
@@ -850,6 +996,24 @@ def test_pipeline_spans_on_card(cuda):
     ranges = [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
               if e.get("cat") == "user_annotation" and e["name"].startswith("repro_torch/")]
     assert sorted(ranges) == sorted(f"repro_torch/{n}" for n in names)
+
+
+def test_a_stream_on_the_card_is_not_copied_again(cuda):
+    """A card has one name: ``None`` and ``"cuda"`` resolve to the current
+    card by its index, the device its tensors carry, so ``mwm_blocked`` and
+    ``substream_match`` on a stream already there record no ``stream.to``."""
+    from repro_torch import obs
+    from repro_torch.core import mwm_blocked
+    from repro_torch.core.types import resolve_device
+
+    stream, cfg = _on(CASES["rmat10_L64"](), cuda)
+    assert resolve_device(None) == resolve_device("cuda") == stream.device
+    assert stream.to("cuda") is stream
+    tel = obs.Telemetry()
+    mwm_blocked(stream, cfg, backend="kernel", telemetry=tel)
+    substream_match(stream, cfg, telemetry=tel)
+    names = [e["name"] for e in tel.tracer.events]
+    assert "kernel_edges.execute" in names and "stream.to" not in names
 
 
 @pytest.mark.parametrize("part1", ["scan", "waves", "blocked", "rounds"])
@@ -900,6 +1064,9 @@ def test_validate_on_card_matches_cpu(cuda, policy):
 
     c = CASES["rmat10_L64"]()
     cpu_stream, cfg = _on(c, "cpu")
+    clean = cpu_stream.to(cuda)
+    out, report = validate_stream(clean, cfg.n, policy=policy)
+    assert out is clean and report.ok and report.num_valid_in == int(clean.valid.sum())
     dirty, _ = faultline.poison_weights(cpu_stream, (1, 7, 99), "nan")
     dirty, _ = faultline.poison_ids(dirty, cfg.n, (5, 500), "sacrificial")
     if policy == "strict":
@@ -947,6 +1114,41 @@ def test_snapshots_and_guard_around_epochs_on_card(cuda, tmp_path):
     assert build.launches[kernel.UNPACKED_NAME] == before + 2
 
 
+def test_lost_snapshot_write_is_replayed_on_card(cuda, tmp_path):
+    """``match_epochs(engine="edges", packed=False)`` on the card, killed
+    after epoch 2 while the async writer still holds that epoch's snapshot
+    and the power fails inside its commit: the directory holds epochs 0 and
+    1, and the resume replays epochs 2 and 3, equal to the one-shot run."""
+    from repro_torch import obs
+    from repro_torch.checkpoint import SnapshotManager
+    from repro_torch.kernels.substream_match.ops import epoch_bounds
+    from repro_torch.testing import faultline
+
+    stream, cfg = _on(CASES["rmat10_L64"](), cuda)
+    one = substream_match(stream, cfg, packed=False)
+    kw = dict(epochs=4, engine="edges", packed=False)
+    lost = SnapshotManager(tmp_path, keep=0)
+    commit, commits = lost.manager._commit, []
+
+    def power_fails_in_third_commit(tmp_dir, final):
+        commits.append(final)
+        if len(commits) == 3:
+            raise faultline.SimulatedCrash(f"killed mid-snapshot before rename of {tmp_dir}")
+        commit(tmp_dir, final)
+
+    lost.manager._commit = power_fails_in_third_commit
+    with pytest.raises(faultline.SimulatedCrash):
+        match_epochs(stream, cfg, snapshots=lost, epoch_hook=faultline.kill_at_epoch(2), **kw)
+    with pytest.raises(faultline.SimulatedCrash, match="mid-snapshot"):
+        lost.wait()
+    assert SnapshotManager(tmp_path).all_positions() == epoch_bounds(stream.num_edges, 4)[1:3]
+    tel = obs.Telemetry()
+    got = match_epochs(stream, cfg, snapshots=SnapshotManager(tmp_path, telemetry=tel),
+                       telemetry=tel, **kw)
+    assert torch.equal(got.assigned, one.assigned) and torch.equal(got.mb, one.mb)
+    assert [e["epoch"] for e in tel.events if e["name"] == "epoch.index"] == [2, 3]
+
+
 # --------------------------------------------------------------------------
 # The parallel-rounds engines, G-SEQ and the graph substrate on the card.
 
@@ -976,6 +1178,30 @@ def test_rounds_on_card_match_cpu(cuda, blocked):
     finally:
         rounds_mod.CHUNK_ELEMENTS = old
     assert torch.equal(chunked.assigned.cpu(), want.assigned)
+
+
+def test_rounds_at_the_papers_size_on_card(cuda):
+    """``mwm_rounds`` on the paper's graph as the benchmark draws it
+    (kron48-L64 at 2^20 vertices, ~44 M edges) in its generated order:
+    it reaches its fixed point with a peak under 40 GB, and its bits are
+    the per-edge engine's."""
+    from perfbench.gen import rmat
+    from repro_torch import obs
+    from repro_torch.core import mwm_rounds
+
+    config = _bench_config("kron48-L64")
+    src, dst, w = rmat.generate(config, 20, torch.Generator(device=cuda).manual_seed(1))
+    stream = EdgeStream(src, dst, w, torch.ones(src.shape, dtype=torch.bool, device=src.device))
+    cfg = SubstreamConfig(n=1 << 20, L=config["L"], eps=config["eps"])
+    tel = obs.Telemetry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = mwm_rounds(stream, cfg, packed=True, telemetry=tel)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() <= 40e9
+    assert tel.match_calls[-1].counters["rounds.converged"]
+    want = substream_match(stream, cfg)
+    assert torch.equal(got.assigned, want.assigned) and torch.equal(got.mb_packed, want.mb_packed)
 
 
 @pytest.mark.parametrize("dtype, reduce", [(torch.int32, "amin"), (torch.float32, "amax"),
@@ -1039,8 +1265,7 @@ def test_coarsen_gseq_and_matchings_on_card_match_cpu(cuda):
     w = graph.uniform_weights(src.shape[0], 32, 0.1, seed=4)
     before = dict(build.launches)
     got = graph.coarsen_by_matching(src, dst, w, 1 << 10)
-    assert {k: v - before.get(k, 0) for k, v in build.launches.items()
-            if v != before.get(k, 0)} == {kernel.ROUNDS_NAME: 1, kernel.ROUNDS_KEYS_NAME: 1}
+    assert _launched(before) == {kernel.ROUNDS_NAME: 1, kernel.ROUNDS_KEYS_NAME: 1}
     for a, b in zip(got, graph.coarsen_by_matching(src, dst, w, 1 << 10, device="cpu")):
         np.testing.assert_array_equal(a, b)
     c = rmat_case(9, edge_factor=4, L=16, pad=3)
@@ -1048,6 +1273,48 @@ def test_coarsen_gseq_and_matchings_on_card_match_cpu(cuda):
     np.testing.assert_array_equal(gseq(stream.to(cuda), cfg.n), gseq(stream, cfg.n, device="cpu"))
     assert torch.equal(substream_matchings(stream.to(cuda), cfg).cpu(),
                        substream_matchings(stream, cfg, device="cpu"))
+
+
+def test_sampled_gin_trainer_on_card(cuda):
+    """The sampled GIN trainer on a Kronecker graph (scale 10): its
+    coarsening is one Part-1 call on the rounds engine (one keys and one
+    rounds launch a slice, nothing else); step 1's loss and gradients are
+    the CPU's on the same batch; its steps launch no kernel."""
+    from repro_torch import graph
+    from repro_torch.launch.gnn_train import SampledGINTrainer
+    from repro_torch.testing.gnn_check import cpu_loss_and_grads, grad_errors
+
+    src, dst = graph.kronecker_graph(10, edge_factor=8, seed=5)
+    w = graph.uniform_weights(src.shape[0], 16, 0.1, seed=5)
+    before = dict(build.launches)
+    trainer = SampledGINTrainer(src, dst, w, 1 << 10, device=cuda)
+    launched = _launched(before)
+    slices = launched.get(kernel.ROUNDS_NAME, 0)
+    assert slices >= 1 and launched == {kernel.ROUNDS_NAME: slices,
+                                        kernel.ROUNDS_KEYS_NAME: slices}
+    before = dict(build.launches)
+    batch, _, _ = trainer.next_batch()
+    loss_cpu, grads_cpu = cpu_loss_and_grads(trainer.model, batch)
+    np.testing.assert_allclose(float(trainer.step(batch)["loss"]), loss_cpu, rtol=1e-4)
+    errs = grad_errors(trainer.model, grads_cpu)
+    assert max(errs.values()) <= 1e-3, errs
+    batch, _, _ = trainer.next_batch()
+    assert np.isfinite(float(trainer.step(batch)["loss"]))
+    assert _launched(before) == {}
+
+
+@pytest.mark.parametrize("example", ["quickstart", "matching_e2e"])
+def test_matching_examples_on_card(cuda, tmp_path, example):
+    """Each matching example at its defaults on the card: its Part 1 runs on
+    the rounds engine (at least one launch), and its matching's weight is
+    within 4 + eps of the exact maximum."""
+    from repro_torch.launch import matching_e2e, quickstart
+
+    before = dict(build.launches)
+    out = (quickstart.run() if example == "quickstart"
+           else matching_e2e.run(ckpt_dir=str(tmp_path / "ckpt")))
+    assert _launched(before).get(kernel.ROUNDS_NAME, 0) >= 1
+    assert out["ratio"] <= out["bound"] + 1e-6, out
 
 
 def test_sharded_rounds_on_a_one_card_nccl_mesh(cuda, tmp_path):
@@ -1073,8 +1340,9 @@ def test_sharded_rounds_on_a_one_card_nccl_mesh(cuda, tmp_path):
 
 @pytest.mark.parametrize("arch_id", ["gin-tu", "egnn", "meshgraphnet", "equiformer-v2"])
 def test_gnn_train_step_on_card_matches_cpu(cuda, arch_id):
-    """One train step of each GNN at its smoke config on the card, held to
-    the port on the CPU from the same weights: the loss within rtol 1e-4,
+    """One train step of each GNN at its smoke config on the card (no
+    kernel of the port launched), held to the port on the CPU from the same
+    weights: the loss within rtol 1e-4,
     each gradient's largest error at most 1e-3 of its largest magnitude
     (atomics reorder the float32 segment sums), or 1e-6 where that
     magnitude is under 1e-3 (``grad_errors``' floor: a gradient that is
@@ -1095,11 +1363,13 @@ def test_gnn_train_step_on_card_matches_cpu(cuda, arch_id):
                            coords=True, seed=1, device=cuda)
     model = _gnn_module(arch).MODEL(cfg, device=cuda)
     loss_cpu, grads_cpu = cpu_loss_and_grads(model, batch)
+    before = dict(build.launches)
     out = train_step(model, AdamW(model.parameters(), AdamWConfig(lr=1e-3)), batch)
     assert out["loss"].device.type == "cuda"
     np.testing.assert_allclose(float(out["loss"]), loss_cpu, rtol=1e-4)
     errs = grad_errors(model, grads_cpu)
     assert max(errs.values()) <= 1e-3, errs
+    assert _launched(before) == {}  # message passing is plain PyTorch
 
 
 LM_IDS = ["internlm2-20b", "minicpm-2b", "gemma-7b", "moonshot-v1-16b-a3b", "grok-1-314b"]
@@ -1116,7 +1386,8 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch_id):
     """Each LM at its smoke config in float32, built on the CPU from seed 0
     and copied to the card: ``prefill`` into a longer cache and three greedy
     ``decode_step``s (committed in place), on both; every logit and cache
-    entry within 1e-4 of the CPU's largest magnitude (TF32 off)."""
+    entry within 1e-4 of the CPU's largest magnitude (TF32 off); no kernel
+    of the port launched (attention and MoE dispatch are plain PyTorch)."""
     import copy
     import dataclasses
 
@@ -1129,6 +1400,7 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch_id):
     card = copy.deepcopy(host).to(cuda)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)).astype(np.int32))
     out = {}
+    before = dict(build.launches)
     for name, model in (("cpu", host), ("cuda", card)):
         dev = next(model.parameters()).device
         cache, last = tfm.prefill(model, tokens.to(dev), max_len=44)
@@ -1145,13 +1417,35 @@ def test_lm_serving_on_card_matches_cpu(cuda, arch_id):
     assert _rel_err(out["cuda"][1], out["cpu"][1]) <= 1e-4
     for k in ("k", "v"):
         assert _rel_err(out["cuda"][2][k], out["cpu"][2][k]) <= 1e-4
+    assert _launched(before) == {}
 
 
-@pytest.mark.parametrize("kind", ["serve_scores", "retrieval"])
-def test_bert4rec_serving_on_card_matches_cpu(cuda, kind):
+def test_decode_step_equals_backbone_on_card(cuda):
+    """gemma-7b at its smoke config (bfloat16 weights, a float32 stream) on
+    the card: prefill of 40 tokens and one decode step give the logits of
+    ``backbone`` over the 41 tokens, whose last attention chunk is short
+    (chunks of 32), within 3e-2 of the largest logit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_arch("gemma-7b").smoke_config
+    assert 41 % cfg.attn_chunk
+    model = tfm.Transformer(cfg, device=cuda, seed=0)
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 41)).astype(np.int32)).to(cuda)
+    with torch.no_grad():
+        cache, _ = tfm.prefill(model, tokens[:, :40], max_len=41)
+        logits, _ = tfm.decode_step(model, cache, tokens[:, 40], 40)
+        want = tfm.lm_logits(model, tfm.backbone(model, tokens)[:, 40])
+    assert _rel_err(logits, want) <= 3e-2
+
+
+@pytest.mark.parametrize("kind", ["serve_scores", "retrieval", "serve_chunks"])
+def test_bert4rec_serving_on_card_matches_cpu(cuda, kind, monkeypatch):
     """BERT4Rec at its smoke config (4,096 items), one serving or retrieval
-    step on the card against the CPU: the top-100 values within 1e-5 of the
-    largest, and the card's indices point at the card's values."""
+    step on the card against the CPU (``serve_chunks``: 8,192 users, scored
+    in two chunks of 4,096 and put back together row for row): the top-100
+    values within 1e-5 of the largest, and no kernel of the port launched."""
     import copy
     import dataclasses
 
@@ -1163,8 +1457,9 @@ def test_bert4rec_serving_on_card_matches_cpu(cuda, kind):
     arch = get_arch("bert4rec")
     arch = dataclasses.replace(arch, config=dataclasses.replace(arch.smoke_config, item_vocab=4096))
     cfg = arch.config
-    shape = (registry.ShapeSpec("s", "serve_scores", batch=8) if kind == "serve_scores"
-             else registry.ShapeSpec("r", "retrieval", batch=1, n_candidates=4096))
+    shape = {"serve_scores": registry.ShapeSpec("s", "serve_scores", batch=8),
+             "serve_chunks": registry.ShapeSpec("c", "serve_scores", batch=2 * 4096),
+             "retrieval": registry.ShapeSpec("r", "retrieval", batch=1, n_candidates=4096)}[kind]
     host = b4r.Bert4Rec(cfg, device="cpu", seed=0)
     card = copy.deepcopy(host).to(cuda)
     batch = RecsysPipeline(cfg.item_vocab, shape.batch, cfg.seq_len, cfg.n_mask, cfg.n_negatives,
@@ -1172,9 +1467,20 @@ def test_bert4rec_serving_on_card_matches_cpu(cuda, kind):
     batch["candidates"] = torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.item_vocab, 4096).astype(np.int32))
     want = steps.make_recsys_step(arch, shape, device="cpu")(host, batch)
+    chunks, row_chunks = [], steps.row_chunks
+
+    def counted(t, n):
+        chunks.append(n)
+        return row_chunks(t, n)
+
+    monkeypatch.setattr(steps, "row_chunks", counted)
+    before = dict(build.launches)
     got = steps.make_recsys_step(arch, shape, device=cuda)(card, batch)
     assert got[0].device.type == "cuda" and got[0].shape == want[0].shape
     assert _rel_err(got[0], want[0]) <= 1e-5
+    assert _launched(before) == {}
+    if kind == "serve_chunks":  # the users and their context, each in two chunks
+        assert chunks == [2, 2] and got[0].shape[0] == shape.batch
 
 
 @pytest.mark.parametrize("which", ["transformer", "bert4rec"])
@@ -1270,7 +1576,8 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch_id):
     (bfloat16 for ``minicpm-2b-bf16``: the card's bf16 GEMM with float32
     output and its backward, against the CPU's float32 products of the same
     bf16 values, held at bf16's 5e-2), from the same weights, with two
-    router columns tied in the MoE archs (the routing ties break alike)."""
+    router columns tied in the MoE archs (the routing ties break alike); no
+    kernel of the port launched."""
     import dataclasses
 
     from repro_torch.configs import get_arch, registry
@@ -1290,9 +1597,11 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch_id):
             host.layers.router[..., 1] = host.layers.router[..., 0]
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)).astype(np.int32))
     lr = 1e-3
+    before = dict(build.launches)
     out = _train_on_both(host, lambda dev: steps.make_lm_train_step(
         arch, shape, steps.AdamWConfig(lr=lr), device=dev), {"tokens": tokens}, lr, cuda)
     assert out["cuda"][0]["loss"].device.type == cuda.type
+    assert _launched(before) == {}
     if bf16:
         _assert_train_held(out, lr, loss_rtol=1e-2, grad_rel=5e-2)
     else:
@@ -1301,7 +1610,8 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch_id):
 
 def test_bert4rec_train_step_on_card_matches_cpu(cuda):
     """One ``make_recsys_step`` train step of BERT4Rec at its smoke config on
-    the card against the CPU, from the same weights."""
+    the card against the CPU, from the same weights; no kernel of the port
+    launched."""
     import dataclasses
 
     from repro_torch.configs import get_arch, registry
@@ -1317,10 +1627,149 @@ def test_bert4rec_train_step_on_card_matches_cpu(cuda):
     batch = RecsysPipeline(cfg.item_vocab, 8, cfg.seq_len, cfg.n_mask, cfg.n_negatives,
                            cfg.n_context, seed=1, device="cpu").batch_at(0)
     lr = 1e-3
+    before = dict(build.launches)
     out = _train_on_both(host, lambda dev: steps.make_recsys_step(
         arch, shape, steps.AdamWConfig(lr=lr), device=dev), batch, lr, cuda)
     assert out["cuda"][0]["loss"].device.type == cuda.type
+    assert _launched(before) == {}
     _assert_train_held(out, lr)
+
+
+#: the rules of the JAX package's multi-device test, as a 1x1 mesh places them
+MESH_RULES = {"dp": ("data",), "embed": None, "heads": "model", "kv_heads": "model",
+              "mlp": "model", "vocab": "model", "layers": None, "model_seq": None}
+#: the one-card mesh's LM step and its dry-run cells (arch, shape, multi_pod):
+#: one production cell per family on a fake world of 256 ranks and one of 512
+MESH_LR, MESH_STEPS = 1e-3, 5
+DRYRUN_CELLS = (("gemma-7b", "train_4k", False), ("gin-tu", "ogb_products", False),
+                ("bert4rec", "serve_p99", False), ("minicpm-2b", "train_4k", True))
+
+
+def _mesh_lm():
+    """gemma-7b at its published width cut to 2 of its 28 layers, float32,
+    and a train shape of 4 x 1,024 tokens: a step whose peak is the model's
+    (~21 GB of weights, gradients and moments), not the allocator's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, registry
+
+    arch = get_arch("gemma-7b")
+    cfg = dataclasses.replace(arch.config, n_layers=2, param_dtype=torch.float32)
+    return (dataclasses.replace(arch, config=cfg),
+            registry.ShapeSpec("mesh", "train", seq_len=1024, global_batch=4))
+
+
+def _lm_steps(mesh):
+    """MESH_STEPS ``make_lm_train_step`` steps of :func:`_mesh_lm` drawn on
+    the card from seed 0, on the same batch each step, under MESH_RULES:
+    with ``mesh``, every parameter a DTensor on it; with None, the plain
+    model. The losses, the peak and the median ms a step (CUDA events)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import sharding_rules, use_mesh
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import distribute_params
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    arch, shape = _mesh_lm()
+    tokens = TokenPipeline(arch.config.vocab, shape.global_batch, shape.seq_len, seed=0).batch_at(0)
+    torch.cuda.empty_cache()
+    model = tfm.Transformer(arch.config, generator=torch.Generator("cuda").manual_seed(0))
+    if mesh is not None:
+        distribute_params(model, tfm.param_specs(arch.config), MESH_RULES, mesh)
+    opt_cfg = AdamWConfig(lr=MESH_LR)
+    opt = AdamW(model.parameters(), opt_cfg)
+    step = make_lm_train_step(arch, shape, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    with sharding_rules(MESH_RULES), use_mesh(mesh):
+        for _ in range(MESH_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(float(step(model, opt, {"tokens": tokens})["loss"]))
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak_bytes": peak, "step_ms": float(np.median(ms[1:]))}
+
+
+def _lm_on_a_one_card_mesh(store):
+    """:func:`_lm_steps` on a 1x1 NCCL mesh (world size 1, a file store at
+    ``store``), then without a mesh; and the kernel launches of both."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    before = dict(build.launches)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    try:
+        sharded = _lm_steps(make_host_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+    return {"sharded": sharded, "plain": _lm_steps(None), "launches": _launched(before)}
+
+
+def _dryrun_on_the_mesh_step(measured):
+    """The dry-run's model of :func:`_mesh_lm`'s step on a 1x1 fake world
+    held to ``measured`` (peak bytes, ms a step) and to ``FlopCounterMode``
+    over one step on the card, then DRYRUN_CELLS on fake worlds (``meta``
+    tensors): the calibration without its record, and each cell's error
+    and peak. Runs in a process that never held an NCCL group."""
+    from repro_torch.launch.dryrun import calibrate, run_cell
+    from repro_torch.optim import AdamWConfig
+
+    arch, shape = _mesh_lm()
+    cal = calibrate(arch, shape, MESH_RULES, measured, AdamWConfig(lr=MESH_LR))
+    cells = []
+    for cell in DRYRUN_CELLS:
+        rec = run_cell(*cell)
+        cells.append({"cell": list(cell), "error": rec.get("error"),
+                      "peak_per_device": rec.get("memory", {}).get("peak_per_device", 0)})
+    return {"calibration": {k: v for k, v in cal.items() if k != "record"}, "cells": cells}
+
+
+@pytest.fixture(scope="module")
+def lm_on_a_one_card_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    return _in_child("_lm_on_a_one_card_mesh", 600,
+                     str(tmp_path_factory.mktemp("mesh") / "store"))
+
+
+def test_lm_train_step_on_a_one_card_nccl_mesh(cuda, lm_on_a_one_card_mesh):
+    """``make_lm_train_step`` with every parameter a DTensor on a 1x1 NCCL
+    mesh gives the losses of the same steps without a mesh (within 1e-5),
+    and they fall; no kernel of the port launched. A world larger than 1
+    needs a card per rank: the multi-rank checks are the gloo tests."""
+    got = np.array(lm_on_a_one_card_mesh["sharded"]["losses"])
+    want = np.array(lm_on_a_one_card_mesh["plain"]["losses"])
+    assert np.isfinite(got).all() and got[-1] < got[0] and want[-1] < want[0]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert lm_on_a_one_card_mesh["launches"] == {}
+
+
+def test_dryrun_holds_to_the_step_on_a_one_card_mesh(cuda, lm_on_a_one_card_mesh):
+    """The dry-run's model of that step: its peak within 0.8-1.25x of the
+    measured peak, its step-time lower bound at most the measured step, its
+    FLOPs within 1 % of ``FlopCounterMode``'s; one production cell per
+    family on 256 and 512 fake ranks records a peak and no error. In a
+    process of its own, killed after 300 s."""
+    from repro_torch.launch.dryrun import FLOPS_RTOL, PEAK_BAND
+
+    run = lm_on_a_one_card_mesh["sharded"]
+    out = _in_child("_dryrun_on_the_mesh_step", 300,
+                    {"peak_bytes": run["peak_bytes"], "step_ms": run["step_ms"]})
+    cal = out["calibration"]
+    assert (PEAK_BAND, FLOPS_RTOL) == ((0.8, 1.25), 0.01)
+    assert PEAK_BAND[0] <= cal["peak_ratio"] <= PEAK_BAND[1], cal
+    assert cal["lower_bound_s"] <= run["step_ms"] / 1e3, cal
+    assert cal["flops_rel_err"] <= FLOPS_RTOL and cal["ok"], cal
+    assert [c["cell"] for c in out["cells"]] == [list(c) for c in DRYRUN_CELLS]
+    assert all(c["error"] is None and c["peak_per_device"] > 0 for c in out["cells"]), out["cells"]
 
 
 @pytest.mark.parametrize("k,shards", [(10, 4), (100, 16)])
